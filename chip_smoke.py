@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Runs the PyTorch/CUDA port's main path on one GPU and checks it.
+"""Runs the PyTorch/CUDA port's main paths on one GPU and checks them.
 
-The main path is device decode of ``.tsq`` containers
-(``turbosqueeze_tpu_torch.decompress(stream, backend="cuda")``), which runs
-two hand-written CUDA kernels: the gang-stream decoder and the raw-payload
-stream decoder. Phases:
+The main paths are device decode and device compress of ``.tsq``
+containers (``turbosqueeze_tpu_torch.decompress(stream, backend="cuda")``
+and ``compress(data, backend="cuda", level=L)``). They run three
+hand-written CUDA kernels: the gang-stream decoder, the raw-payload stream
+decoder and the token emitter (two matchers: the upstream's hash table at
+level 0, phase-A candidates at level 1). Phases:
 
   0. the card; rebuild the native host core and build the CUDA kernels;
   1. the gang kernel against its plain PyTorch version, per
@@ -14,11 +16,21 @@ stream decoder. Phases:
   3. end to end: a 256 MiB input (64 full blocks) compressed at levels 0,
      1 and 2, decoded through the public API, checked against the input
      and the native host decoder, and timed;
-  4. the stream route end to end on a 64 MiB container.
+  4. the stream route end to end on a 64 MiB container;
+  5. the emit kernel against its plain version and the native core, both
+     matchers, ext on and off, mixed blocks (a full random block, a short
+     and an empty one), a dictionary base, and one full 4 MiB block per
+     matcher, timed;
+  6. compress end to end: the 256 MiB input of phase 3 at levels 0, 1 and
+     2, each container byte-identical to the native core's and decoded
+     back on the card; timed, with its layers timed apart; then its first
+     64 MiB with a 33 KB dictionary at levels 1 and 2, byte-identical to
+     ``native.compress_dict``.
 
 Every kernel is held against its plain version at zero tolerance over the
-bytes the format defines (each block's first ``size`` bytes). Any failure
-raises and the script exits non-zero. The last lines are a JSON record of
+bytes the format defines (each block's first ``size`` bytes, or each
+payload's first ``osz`` bytes). Any failure raises and the script exits
+non-zero. The last lines are a JSON record of
 the kernels and the device line. Run from the repository root:
 
     python3 chip_smoke.py
@@ -44,6 +56,10 @@ KERNELS = {  # name -> (source in the port, the TPU kernel it replaces)
                     "turbosqueeze_tpu/kernels/decode_gang.py:139"),
     "decode_stream": ("turbosqueeze_tpu_torch/kernels/csrc/decode_stream.cu",
                       "turbosqueeze_tpu/kernels/decode_stream.py:45"),
+    "encode_emit_table": ("turbosqueeze_tpu_torch/kernels/csrc/encode_emit.cu",
+                          "turbosqueeze_tpu/kernels/encode_emit.py:181"),
+    "encode_emit_cand": ("turbosqueeze_tpu_torch/kernels/csrc/encode_emit.cu",
+                         "turbosqueeze_tpu/kernels/encode_emit.py:181"),
 }
 
 
@@ -277,11 +293,15 @@ def _main_path(counts, fn):
     and the counts are read and added up just after."""
     from turbosqueeze_tpu_torch.kernels import decode_gang as DG
     from turbosqueeze_tpu_torch.kernels import decode_stream as DS
+    from turbosqueeze_tpu_torch.kernels import encode_emit as EE
 
     DG.launches = DS.launches = 0
+    EE.launches.update(dict.fromkeys(EE.launches, 0))
     r = fn()
     counts["decode_gang"] += DG.launches
     counts["decode_stream"] += DS.launches
+    for m, n in EE.launches.items():
+        counts[f"encode_emit_{m}"] += n
     return r
 
 
@@ -407,6 +427,232 @@ def phase4(errs, counts, timing):
         decode_MBps=f"{mb / e2e_ms * 1e3:.1f}")
 
 
+def _emit_compare(errs, planes, ext, matcher, what):
+    """The emit kernel on the card's copy of ``planes`` against its plain
+    version on the host's: ``osz`` equal and each block's first
+    ``osz[b, 0]`` payload bytes equal. Returns the kernel's payloads and
+    the plain version's milliseconds."""
+    from turbosqueeze_tpu_torch.kernels import encode_emit as EE
+
+    name = f"encode_emit_{matcher}"
+    dev, host = ([None if p is None else p.to(d) for p in planes]
+                 for d in ("cuda", "cpu"))
+    got, gsz = EE.emit_batch(*dev, ext=ext, matcher=matcher)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, rsz = EE.emit_batch(*host, ext=ext, matcher=matcher)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(gsz.cpu(), rsz), f"{what}: osz {gsz[:, 0].tolist()} "
+          f"!= plain {rsz[:, 0].tolist()}")
+    out = []
+    for b in range(rsz.shape[0]):
+        n = int(rsz[b, 0])
+        check(n > 0, f"{what} block {b}: refused")
+        g, r = (EE.payload_from_words(w[b], n) for w in (got, ref))
+        diff = np.abs(np.frombuffer(g, np.uint8).astype(np.int16)
+                      - np.frombuffer(r, np.uint8).astype(np.int16))
+        errs[name] = max(errs[name], int(diff.max()))
+        check(g == r, f"{what} block {b}: kernel != plain")
+        out.append(g)
+    return out, plain_ms
+
+
+def _emit_planes(blocks, dictionary=b"", cand=True):
+    """Input, candidate (phase A on the card, held against the native
+    core's hash chain) and meta planes of a batch, on the card."""
+    from turbosqueeze_tpu.runtime import native
+    from turbosqueeze_tpu_torch.kernels import encode_emit as EE
+    from turbosqueeze_tpu_torch.kernels import encode_xla as EX
+
+    iw = torch.from_numpy(np.stack([EE.pack_input_words(dictionary + b)
+                                    for b in blocks])).cuda()
+    cw = None
+    if cand:
+        n = len(dictionary) + max(map(len, blocks))
+        cands = EX.find_candidates(iw.view(len(blocks), -1)
+                                   .view(torch.uint8)[:, :n]).cpu().numpy()
+        for b, blk in enumerate(blocks):
+            m = len(dictionary) + len(blk)
+            check(np.array_equal(cands[b, :m],
+                                 native.build_candidates(dictionary + blk)),
+                  f"phase A block {b}: != native.build_candidates")
+        cw = torch.from_numpy(np.stack([EE.pack_cand_words(c[:len(dictionary)
+                                                             + len(b)])
+                                        for c, b in zip(cands, blocks)]))
+    meta = torch.from_numpy(EE.pack_meta([len(b) for b in blocks],
+                                         len(dictionary)))
+    return [iw, cw, meta]
+
+
+def phase5(errs, timing):
+    """Emit kernel vs its plain version and the native core: both matchers,
+    ext on and off, mixed blocks, a dictionary base, full blocks."""
+    from turbosqueeze_tpu.format import iter_container
+    from turbosqueeze_tpu.runtime import native
+    from turbosqueeze_tpu.utils.corpus import synthetic_binary, synthetic_text
+    from turbosqueeze_tpu_torch.kernels import encode_emit as EE
+    from turbosqueeze_tpu_torch.kernels import encode_xla as EX
+
+    def want(blk, ext, matcher, dictionary=b""):
+        if dictionary:
+            return native.encode_block_dict(
+                blk, dictionary, native.build_candidates(dictionary + blk),
+                ext)
+        if matcher == "cand":
+            return native.encode_block_candidates(
+                blk, native.build_candidates(blk), ext)
+        return next(iter_container(native.compress(blk, ext, level=0)))[1]
+
+    # a full random block expands to near the payload bound
+    blocks = [synthetic_text(700_000, seed=41),
+              synthetic_binary(500_000, seed=43), bytes(300_000),
+              np.random.default_rng(7).bytes(4 * MiB), b"abcab", b""]
+    d = synthetic_text(33_000, seed=113)
+    dict_blocks = [synthetic_text(150_000, seed=114), bytes(20_000)]
+    for matcher in ("table", "cand"):
+        planes = _emit_planes(blocks, cand=matcher == "cand")
+        for ext in (True, False):
+            got, _ = _emit_compare(errs, planes, ext, matcher,
+                                   f"{matcher} ext={ext}")
+            for b, blk in enumerate(blocks[:-1]):  # native skips empty
+                check(got[b] == want(blk, ext, matcher),
+                      f"{matcher} ext={ext} block {b}: kernel != native")
+            check(len(got[-1]) == 5, "empty block: not header + two slots")
+            say("phase5", matcher=matcher, ext=ext, blocks=len(blocks),
+                bytes=sum(map(len, blocks)),
+                random_payload=len(got[3]), exact=True)
+    planes = _emit_planes(dict_blocks, dictionary=d)
+    for ext in (True, False):
+        got, _ = _emit_compare(errs, planes, ext, "cand",
+                               f"dict ext={ext}")
+        for b, blk in enumerate(dict_blocks):
+            check(got[b] == want(blk, ext, "cand", d),
+                  f"dict ext={ext} block {b}: kernel != native")
+        say("phase5", matcher="cand", dictionary=len(d), ext=ext, exact=True)
+
+    # one full text block per matcher, B=1, at the main path's shapes
+    full = _e2e_input(2)[4 * MiB:]
+    x = torch.from_numpy(np.frombuffer(full, np.uint8).copy())[None].cuda()
+    phase_a_ms = _cuda_ms(lambda: EX.find_candidates(x), 5)
+    for matcher in ("table", "cand"):
+        planes = _emit_planes([full], cand=matcher == "cand")
+        dev = [None if p is None else p.cuda() for p in planes]
+        ms = _cuda_ms(lambda: EE.emit_batch(*dev, matcher=matcher), 3)
+        got, plain_ms = _emit_compare(errs, planes, True, matcher,
+                                      f"{matcher} full block")
+        timing[f"encode_emit_{matcher}"] = (ms, plain_ms)
+        check(got[0] == want(full, True, matcher),
+              f"{matcher} full block: kernel != native")
+        say("phase5", matcher=matcher, full_block=True, exact=True,
+            kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.1f}",
+            payload=len(got[0]))
+    say("phase5", phase_a_ms_per_block=f"{phase_a_ms:.4f}")
+
+
+def phase6(counts):
+    """Compress end to end through the public API, and its layers timed
+    apart on the same windows."""
+    import turbosqueeze_tpu_torch as tsq
+    from turbosqueeze_tpu.format import split_blocks
+    from turbosqueeze_tpu.runtime import native
+    from turbosqueeze_tpu_torch.parallel import pipeline
+
+    data = _e2e_input(64)
+    mb = len(data) / 1e6
+    blocks = split_blocks(data)
+    wins = [blocks[lo:lo + pipeline.WINDOW_BLOCKS]
+            for lo in range(0, len(blocks), pipeline.WINDOW_BLOCKS)]
+    for level in (0, 1, 2):
+        matcher = {0: "table", 1: "cand"}.get(level)
+        before = dict(counts)
+        stream = _main_path(counts, lambda: tsq.compress(
+            data, backend="cuda", level=level))
+        check(stream == native.compress(data, True, level=level),
+              f"level {level}: port compress != native compress")
+        if matcher:
+            check(counts[f"encode_emit_{matcher}"]
+                  > before[f"encode_emit_{matcher}"],
+                  f"level {level}: the {matcher} emitter never launched")
+        out = _main_path(counts, lambda: tsq.decompress(stream,
+                                                        backend="cuda"))
+        check(out == data, f"level {level}: port decode of port compress "
+              "!= input")
+        e2e = [_host_ms(lambda: _main_path(counts, lambda: tsq.compress(
+            data, backend="cuda", level=level)), 1) for _ in range(3)]
+        e2e_ms = statistics.median(e2e)
+        native_ms = _host_ms(lambda: native.compress(data, True,
+                                                     level=level), 3)
+
+        # the same windows, layer by layer
+        up, pa, em, down, host_s, host_cpu = [], [], [], [], 0.0, 0.0
+        for win in wins:
+            t0 = time.perf_counter()
+            batch = pipeline._upload_window(win, None, torch.device("cuda"))
+            torch.cuda.synchronize()
+            up.append((time.perf_counter() - t0) * 1e3)
+            cands = None
+            if level >= 1:
+                pa.append(_cuda_ms(lambda: pipeline._phase_a(batch, win, 0),
+                                   3))
+                cands = pipeline._phase_a(batch, win, 0)
+            if level <= 1:
+                em.append(_cuda_ms(lambda: pipeline._emit_window(
+                    batch, cands, win, 0, True), 1))
+                words, osz = pipeline._emit_window(batch, cands, win, 0, True)
+                rows = -(-int(osz[:, 0].max()) // 512)
+                pinned = torch.empty((len(win), rows, 128), dtype=torch.int32,
+                                     pin_memory=True)
+                down.append(_cuda_ms(lambda: pinned.copy_(
+                    words[:, :rows], non_blocking=True), 3))
+            else:
+                t0 = time.perf_counter()
+                host = cands.cpu().numpy()
+                down.append((time.perf_counter() - t0) * 1e3)
+                cpu0, t0 = time.process_time(), time.perf_counter()
+                with ThreadPoolExecutor() as pool:
+                    list(pool.map(lambda b: native.encode_block_candidates(
+                        win[b], host[b, :len(win[b])], True, level=level),
+                        range(len(win))))
+                host_s += time.perf_counter() - t0
+                host_cpu += time.process_time() - cpu0
+            del batch, cands
+        fmt = lambda v: "/".join(f"{t:.2f}" for t in v)  # noqa: E731
+        extra = ({"host_emit_s": f"{host_s:.3f}",
+                  "host_emit_cpu_s": f"{host_cpu:.3f}",
+                  "host_cores": f"{host_cpu / e2e_ms * 1e3:.2f}"}
+                 if level >= 2 else {"emit_ms_per_window": fmt(em)})
+        say("phase6", level=level, input_mb=f"{mb:.1f}",
+            ratio=f"{len(stream) / len(data):.4f}", exact=True,
+            compress_MBps=f"{mb / e2e_ms * 1e3:.1f}",
+            e2e_ms="/".join(f"{t:.1f}" for t in e2e),
+            h2d_ms_per_window=fmt(up),
+            phase_a_ms_per_window=fmt(pa) if pa else "-",
+            d2h_ms_per_window=fmt(down), **extra,
+            native_compress_MBps=f"{mb / native_ms * 1e3:.1f}")
+
+    # a preset dictionary: concat(dict, block) through phase A and the
+    # cand matcher (level 1), or the host's lazy parse (level 2)
+    from turbosqueeze_tpu.utils.corpus import synthetic_text
+
+    d = synthetic_text(33_000, seed=113)
+    part = data[:16 * 4 * MiB]
+    for level in (1, 2):
+        before = counts["encode_emit_cand"]
+        t0 = time.perf_counter()
+        stream = _main_path(counts, lambda: tsq.compress(
+            part, backend="cuda", level=level, dictionary=d))
+        e2e_ms = (time.perf_counter() - t0) * 1e3
+        check(stream == native.compress_dict(part, d, True, level=level),
+              f"dictionary level {level}: port != native.compress_dict")
+        check(native.decompress_dict(stream, d) == part,
+              f"dictionary level {level}: does not decode back")
+        check(level == 2 or counts["encode_emit_cand"] > before,
+              "dictionary: the cand emitter never launched")
+        say("phase6", dictionary=len(d), level=level,
+            input_mb=f"{len(part) / 1e6:.1f}", exact=True,
+            compress_MBps=f"{len(part) / 1e6 / e2e_ms * 1e3:.1f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
@@ -425,6 +671,8 @@ def main() -> int:
     phase2(errs)
     phase3(errs, counts, timing)
     phase4(errs, counts, timing)
+    phase5(errs, timing)
+    phase6(counts)
     check(all(counts.values()),
           f"a kernel of the main path never launched: {counts}")
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]

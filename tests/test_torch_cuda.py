@@ -14,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+from turbosqueeze_tpu.format import iter_container
 from turbosqueeze_tpu.utils.corpus import synthetic_binary, synthetic_text
 from turbosqueeze_tpu_torch.kernels import decode_gang as PG
 from turbosqueeze_tpu_torch.kernels import decode_stream as PS
 from turbosqueeze_tpu_torch.kernels import decode_tokens as PT
+from turbosqueeze_tpu_torch.kernels import encode_emit as PE
 from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
 from turbosqueeze_tpu_torch.parallel import pipeline
 
@@ -108,6 +110,62 @@ def test_pipeline_mixes_both_kernels(native, monkeypatch):
     assert out == data
 
 
+@pytest.mark.parametrize("matcher", ["cand", "table"])
+@pytest.mark.parametrize("ext", [True, False])
+def test_emit_kernel_matches_plain(native, matcher, ext):
+    """Both matchers on text, zeros, binary, random bytes, a 5-byte and an
+    empty block, and (cand) a dictionary base: kernel, plain version and
+    the native core give the same payloads."""
+    blocks = [make() for make, _ in _MIXED] + [b"abcab", b""]
+    for d in (b"", synthetic_text(33_000, seed=113)):
+        if d and matcher == "table":
+            continue
+        planes = [np.stack([PE.pack_input_words(d + b) for b in blocks]),
+                  np.stack([PE.pack_cand_words(native.build_candidates(d + b))
+                            for b in blocks]),
+                  PE.pack_meta([len(b) for b in blocks], len(d))]
+        if matcher == "table":
+            planes[1] = None
+        before = PE.launches[matcher]
+        got, gsz = PE.emit_batch(*(None if p is None else
+                                   planes_to_torch(p, device="cuda")[0]
+                                   for p in planes), ext=ext, matcher=matcher)
+        torch.cuda.synchronize()
+        assert PE.launches[matcher] == before + 1
+        ref, rsz = PE.emit_batch(*(None if p is None else torch.from_numpy(p)
+                                   for p in planes), ext=ext, matcher=matcher)
+        assert torch.equal(gsz.cpu(), rsz)
+        for k, b in enumerate(blocks):
+            payload = PE.payload_from_words(got[k], int(rsz[k, 0]))
+            assert payload == PE.payload_from_words(ref[k], int(rsz[k, 0]))
+            if not b:
+                continue
+            if d:
+                want = native.encode_block_dict(
+                    b, d, native.build_candidates(d + b), ext)
+            elif matcher == "cand":
+                want = native.encode_block_candidates(
+                    b, native.build_candidates(b), ext)
+            else:
+                want = next(iter_container(native.compress(b, ext, 0)))[1]
+            assert payload == want, f"block {k}"
+
+
+def test_compress_matches_native(native):
+    """``compress(backend="cuda")`` at levels 0, 1 and 2 and with a
+    dictionary: the native core's containers, decoded back on the card."""
+    import turbosqueeze_tpu_torch as tsq
+
+    data = b"".join(make() for make, _ in _MIXED) * 20  # 2 blocks
+    for level in (0, 1, 2):
+        stream = tsq.compress(data, backend="cuda", level=level)
+        assert stream == native.compress(data, True, level=level), level
+        assert tsq.decompress(stream, backend="cuda") == data
+    d = synthetic_text(33_000, seed=113)
+    assert tsq.compress(data, backend="cuda", dictionary=d) == \
+        native.compress_dict(data, d, True)
+
+
 def test_wrapper_refuses_planes_on_two_devices(native):
     lit, gang = (torch.zeros((1, 8, 128), dtype=torch.int32, device="cuda")
                  for _ in range(2))
@@ -116,3 +174,7 @@ def test_wrapper_refuses_planes_on_two_devices(native):
         PG.decode_gang_batch(lit, gang, gmeta, nblk=1)
     with pytest.raises(ValueError, match="meta is on cpu"):
         PS.decode_stream_batch(lit, torch.zeros((1, 8), dtype=torch.int32))
+    iw = torch.zeros((1, PE.IN_ROWS, 128), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="meta is on cpu"):
+        PE.emit_batch(iw, None, torch.zeros((1, 8), dtype=torch.int32),
+                      matcher="table")

@@ -14,11 +14,13 @@ from turbosqueeze_tpu.kernels import decode_bulk as RB
 from turbosqueeze_tpu.kernels import decode_gang as RG
 from turbosqueeze_tpu.kernels import decode_stream as RS
 from turbosqueeze_tpu.kernels import decode_tokens as RT
+from turbosqueeze_tpu.kernels import encode_emit as RE
 from turbosqueeze_tpu.parallel import pipeline as RP
 from turbosqueeze_tpu_torch.kernels import decode_bulk as PB
 from turbosqueeze_tpu_torch.kernels import decode_gang as PG
 from turbosqueeze_tpu_torch.kernels import decode_stream as PS
 from turbosqueeze_tpu_torch.kernels import decode_tokens as PT
+from turbosqueeze_tpu_torch.kernels import encode_emit as PE
 from turbosqueeze_tpu_torch.parallel import mesh as PM
 from turbosqueeze_tpu_torch.parallel import pipeline as PP
 
@@ -39,6 +41,8 @@ import turbosqueeze_tpu_torch
 import turbosqueeze_tpu_torch.kernels._build
 import turbosqueeze_tpu_torch.kernels.decode_gang
 import turbosqueeze_tpu_torch.kernels.decode_stream
+import turbosqueeze_tpu_torch.kernels.encode_emit
+import turbosqueeze_tpu_torch.kernels.encode_xla
 import turbosqueeze_tpu_torch.parallel.pipeline
 import turbosqueeze_tpu_torch.runtime.api
 assert "torch" in sys.modules
@@ -60,9 +64,10 @@ def test_import_never_loads_jax():
     (PB, RB, ("WIN_BYTES", "WIN_ROWS", "TAIL_ROWS", "TAIL_BYTES", "MAX_WIN")),
     (PG, RG, ("GANG_WORDS", "GMETA_WORDS")),
     (PS, RS, ("_WIN_ROWS",)),
+    (PE, RE, ("IN_ROWS", "OUT_ROWS", "CAND_ROWS", "_DICT_ROWS")),
     (PP, RP, ("GANG_SRECS",)),
 ], ids=["decode_tokens", "decode_bulk", "decode_gang", "decode_stream",
-        "pipeline"])
+        "encode_emit", "pipeline"])
 def test_redeclared_constants(port, ref, names):
     for n in names:
         assert getattr(port, n) == getattr(ref, n), n

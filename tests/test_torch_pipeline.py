@@ -135,9 +135,9 @@ def test_api_rejects_unported_routes(native):
     with pytest.raises(NotImplementedError):
         tsq.decompress(stream, backend="cuda", dictionary=b"dict")
     with pytest.raises(NotImplementedError):
-        tsq.compress(b"data", backend="cuda")
+        pipeline.compress(b"data", device="cpu", emit_impl="bulk")
     with pytest.raises(NotImplementedError):
-        tsq.compress(b"data", dictionary=b"dict")
+        tsq.compress(b"data", backend="oracle", dictionary=b"dict")
     with pytest.raises(FormatError):
         tsq.decompress(b"not a tsq stream", backend="cuda")
     with pytest.raises(ValueError, match="backend"):

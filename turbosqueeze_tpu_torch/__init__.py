@@ -7,9 +7,13 @@ format, the native C++ core (``turbosqueeze_tpu.runtime.native``, built
 from ``csrc/``), the oracle codec and the corpora — and re-declares what
 the JAX modules hold. Importing it never loads JAX.
 
-Decode of a ``.tsq`` container runs on the card through two kernels in
-``kernels/csrc/``: the gang-stream decoder (blocks the native core
-resolves) and the raw-payload stream decoder (the fallback).
+Compress and decode of a ``.tsq`` container run on the card
+(``compress``/``decompress`` with ``backend="cuda"``), through three
+kernels in ``kernels/csrc/``: the token emitter (level 0 with the
+upstream's hash table, level 1 from phase-A candidates), the gang-stream
+decoder (blocks the native core resolves) and the raw-payload stream
+decoder (the fallback). Level >= 2 compress searches on the card and
+parses on the host.
 """
 
 __version__ = "0.1.0"

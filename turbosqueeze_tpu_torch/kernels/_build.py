@@ -14,11 +14,11 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("decode_gang.cu", "decode_stream.cu")
+SOURCES = ("decode_gang.cu", "decode_stream.cu", "encode_emit.cu")
 LIB_PATH = (Path(__file__).resolve().parents[2] / "build" / "cuda"
             / "libtsq_torch_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 
@@ -41,13 +41,29 @@ def build() -> str:
     if LIB_PATH.exists() and LIB_PATH.stat().st_mtime >= newest:
         return ""
     LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = [LIB_PATH.with_name(f"{s.stem}.{tag}.o") for s in srcs]
+    # one nvcc per source, all at once: the build time is the slowest
+    # source's, not the sum
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for s, o in zip(srcs, objs)]
+    report = []
+    for s, p in zip(srcs, procs):
+        _, err = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {s.name} ({p.returncode}):"
+                               f"\n{err}")
+        report.append(err)
+    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{tag}")
+    r = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                       capture_output=True, text=True)
+    for o in objs:
+        o.unlink()
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+        raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{r.stderr}")
     os.replace(tmp, LIB_PATH)  # atomic: a reader never sees a partial file
-    return r.stderr
+    return "".join(report)
 
 
 def library() -> ctypes.CDLL:
@@ -65,6 +81,10 @@ def library() -> ctypes.CDLL:
         # dict_rows, stream
         lib.tsq_decode_stream.argtypes = [P, P, P, P, I, I, I, I, P]
         lib.tsq_decode_stream.restype = I
+        # input, cand, table, meta, out, osz, n_blocks, in_rows, cand_rows,
+        # out_rows, ext, table_mode, stream
+        lib.tsq_encode_emit.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
+        lib.tsq_encode_emit.restype = I
         lib.tsq_cuda_error_string.argtypes = [I]
         lib.tsq_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

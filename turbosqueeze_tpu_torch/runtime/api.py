@@ -2,14 +2,14 @@
 of ``turbosqueeze_tpu/runtime/api.py``.
 
 Backends:
-  * ``cuda``   — device decode on the GPU (``parallel/pipeline.py``).
+  * ``cuda``   — the device pipeline on the GPU (``parallel/pipeline.py``):
+    compress and decode of ``.tsq`` containers run on the card.
   * ``native`` — the shared C++ multithreaded host core.
   * ``oracle`` — the shared pure-Python exact codec.
   * ``auto``   — as in the JAX package: native if built, else oracle.
 
-Compression is the native host core's job here, as the JAX package's
-``auto`` makes it; device encode is not ported yet. TSQX containers and
-preset dictionaries are not ported yet either.
+TSQX containers, and preset dictionaries on the ``cuda`` decode, are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -32,44 +32,72 @@ def _resolve(backend: str) -> str:
 
 
 def compress(data: bytes, ext: bool = True, backend: str = "auto",
-             level: int = 0, dictionary: bytes = None) -> bytes:
-    """Compress bytes into a .tsq container on the host.
+             level: int = 0, dictionary: bytes = None, progress=None,
+             device=None) -> bytes:
+    """Compress bytes into a .tsq container.
 
     ``level`` 0 reproduces the upstream greedy parse bit for bit; >= 1 are
-    the native core's better parses of the same format.
+    the exact candidate parses of the same format (>= 2 the lazy one).
+    ``dictionary`` (<= 65532 bytes) is shared context virtually preceding
+    every block, at level >= 1; both ends must use the same one.
+    ``progress`` is called with ``(blocks_done, n_blocks)`` per block.
+    ``device`` picks the card for ``backend='cuda'`` (default: the first
+    CUDA device); every backend's container is the same bytes.
     """
-    if dictionary is not None:
-        raise NotImplementedError("preset dictionaries are not ported yet")
     b = _resolve(backend)
+    if dictionary is not None:
+        if b == "oracle":
+            raise NotImplementedError(
+                "dictionary mode needs the native or cuda backend")
+        if b == "native":
+            from turbosqueeze_tpu.runtime import native
+
+            return native.compress_dict(data, dictionary, ext,
+                                        level=max(level, 1),
+                                        progress=progress)
+        return pipeline.compress(data, ext, level=max(level, 1),
+                                 device=device, dictionary=dictionary,
+                                 progress=progress)
     if b == "cuda":
-        raise NotImplementedError("device encode is not ported yet; use "
-                                  "backend='native'")
+        return pipeline.compress(data, ext, level=level, device=device,
+                                 progress=progress)
     if b == "oracle":
         from turbosqueeze_tpu import reference_codec
 
         return reference_codec.compress(data, ext)
     from turbosqueeze_tpu.runtime import native
 
-    return native.compress(data, ext, level=level)
+    return native.compress(data, ext, level=level, progress=progress)
 
 
 def decompress(stream: bytes, backend: str = "auto",
-               dictionary: bytes = None, device=None) -> bytes:
+               dictionary: bytes = None, device=None,
+               progress=None) -> bytes:
     """Decompress a .tsq container. ``device`` picks the card for
-    ``backend='cuda'`` (default: the first CUDA device)."""
+    ``backend='cuda'`` (default: the first CUDA device). ``progress`` is
+    called with ``(blocks_done, n_blocks)`` per block."""
     if len(stream) >= 4 and stream[:4] == b"TSQX":
         raise NotImplementedError("TSQX containers are not ported yet")
     if len(stream) < 16 or stream[:4] != b"TSQ1":
         raise FormatError("not a TSQ1 stream")
-    if dictionary is not None:
-        raise NotImplementedError("preset dictionaries are not ported yet")
     b = _resolve(backend)
+    if dictionary is not None:
+        if b == "cuda":
+            raise NotImplementedError(
+                "preset dictionaries are not ported to the cuda decode yet")
+        if b == "oracle":
+            from turbosqueeze_tpu import reference_codec
+
+            return reference_codec.decompress(stream, dictionary=dictionary)
+        from turbosqueeze_tpu.runtime import native
+
+        return native.decompress_dict(stream, dictionary, progress=progress)
     if b == "cuda":
-        return pipeline.decompress(stream, device=device)
+        return pipeline.decompress(stream, device=device, progress=progress)
     if b == "oracle":
         from turbosqueeze_tpu import reference_codec
 
         return reference_codec.decompress(stream)
     from turbosqueeze_tpu.runtime import native
 
-    return native.decompress(stream)
+    return native.decompress(stream, progress=progress)
