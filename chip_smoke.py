@@ -3,10 +3,12 @@
 
 The main paths are device decode and device compress of ``.tsq``
 containers (``turbosqueeze_tpu_torch.decompress(stream, backend="cuda")``
-and ``compress(data, backend="cuda", level=L)``). They run three
-hand-written CUDA kernels: the gang-stream decoder, the raw-payload stream
-decoder and the token emitter (two matchers: the upstream's hash table at
-level 0, phase-A candidates at level 1). Phases:
+and ``compress(data, backend="cuda", level=L)``), and the host-tokenized
+decode (``pipeline.decompress(stream, impl="pallas")``,
+``decompress_to_words``). They run four hand-written CUDA kernels: the
+gang-stream decoder, the raw-payload stream decoder, the token emitter (two
+matchers: the upstream's hash table at level 0, phase-A candidates at level
+1) and the token-chunk decoder. Phases:
 
   0. the card; rebuild the native host core and build the CUDA kernels;
   1. the gang kernel against its plain PyTorch version, per
@@ -25,7 +27,14 @@ level 0, phase-A candidates at level 1). Phases:
      2, each container byte-identical to the native core's and decoded
      back on the card; timed, with its layers timed apart; then its first
      64 MiB with a 33 KB dictionary at levels 1 and 2, byte-identical to
-     ``native.compress_dict``.
+     ``native.compress_dict``;
+  7. the token-chunk kernel against its plain version (mixed blocks, ext
+     on and off, a dictionary prefix, garbage planes, one full block,
+     timed) and the gang kernel with a dictionary in three windows; phase
+     3's containers through ``impl="pallas"`` and ``impl="xla"`` and
+     ``decompress_to_words``, against the native decoder and timed; and a
+     64 MiB dictionary container through ``decompress(backend="cuda",
+     dictionary=d)`` and every route, against ``native.decompress_dict``.
 
 Every kernel is held against its plain version at zero tolerance over the
 bytes the format defines (each block's first ``size`` bytes, or each
@@ -60,6 +69,8 @@ KERNELS = {  # name -> (source in the port, the TPU kernel it replaces)
                           "turbosqueeze_tpu/kernels/encode_emit.py:181"),
     "encode_emit_cand": ("turbosqueeze_tpu_torch/kernels/csrc/encode_emit.cu",
                          "turbosqueeze_tpu/kernels/encode_emit.py:181"),
+    "decode_tokens": ("turbosqueeze_tpu_torch/kernels/csrc/decode_tokens.cu",
+                      "turbosqueeze_tpu/kernels/decode_tokens.py:171"),
 }
 
 
@@ -293,13 +304,15 @@ def _main_path(counts, fn):
     and the counts are read and added up just after."""
     from turbosqueeze_tpu_torch.kernels import decode_gang as DG
     from turbosqueeze_tpu_torch.kernels import decode_stream as DS
+    from turbosqueeze_tpu_torch.kernels import decode_tokens as DK
     from turbosqueeze_tpu_torch.kernels import encode_emit as EE
 
-    DG.launches = DS.launches = 0
+    DG.launches = DS.launches = DK.launches = 0
     EE.launches.update(dict.fromkeys(EE.launches, 0))
     r = fn()
     counts["decode_gang"] += DG.launches
     counts["decode_stream"] += DS.launches
+    counts["decode_tokens"] += DK.launches
     for m, n in EE.launches.items():
         counts[f"encode_emit_{m}"] += n
     return r
@@ -316,8 +329,9 @@ def phase3(errs, counts, timing):
     data = _e2e_input(64)
     mb = len(data) / 1e6
     srecs = pipeline.GANG_SRECS[pipeline.GANG_NBLK]
+    streams = {}
     for level in (0, 1, 2):
-        stream = native.compress(data, True, level=level)
+        stream = streams[level] = native.compress(data, True, level=level)
         before = counts["decode_gang"]
         out = _main_path(counts, lambda: tsq.decompress(stream,
                                                         backend="cuda"))
@@ -384,6 +398,7 @@ def phase3(errs, counts, timing):
             resolve_cpu_s=f"{resolve_cpu_s:.3f}",
             resolve_cores_at_decode_rate=f"{resolve_cpu_s / e2e_ms * 1e3:.2f}",
             native_decode_MBps=f"{mb / native_ms * 1e3:.1f}")
+    return data, streams
 
 
 def phase4(errs, counts, timing):
@@ -653,6 +668,211 @@ def phase6(counts):
             compress_MBps=f"{len(part) / 1e6 / e2e_ms * 1e3:.1f}")
 
 
+def _token_compare(errs, parsed, datas, what):
+    """The token kernel on the card's copy of a window's planes against
+    its plain version on the host's. Returns the planes and out_rows."""
+    from turbosqueeze_tpu_torch.kernels import decode_tokens as DK
+    from turbosqueeze_tpu_torch.parallel import pipeline
+
+    with ThreadPoolExecutor() as pool:
+        planes, out_rows = pipeline._token_planes(parsed, pool, False)
+    got = DK.decode_tokens_batch(*(p.cuda() for p in planes),
+                                 out_rows=out_rows)
+    torch.cuda.synchronize()
+    ref = DK.decode_tokens_batch(*planes, out_rows=out_rows)
+    base = parsed[0][6]
+    for b, d in enumerate(datas):
+        _compare(errs, "decode_tokens", _bytes_of(got, b, base, len(d)),
+                 _bytes_of(ref, b, base, len(d)), d, f"{what} block {b}")
+    return planes, out_rows
+
+
+def phase7(errs, counts, timing, data, streams):
+    """The host-tokenized decode: the token kernel against its plain
+    version, the gang kernel in three windows, the pallas and xla routes
+    and ``decompress_to_words`` on phase 3's containers, and a dictionary
+    container through every route."""
+    import turbosqueeze_tpu_torch as tsq
+    from turbosqueeze_tpu.format import iter_container, scan_block_table
+    from turbosqueeze_tpu.runtime import native
+    from turbosqueeze_tpu.utils.corpus import synthetic_text
+    from turbosqueeze_tpu_torch import block
+    from turbosqueeze_tpu_torch.kernels import decode_gang as DG
+    from turbosqueeze_tpu_torch.kernels import decode_tokens as DK
+    from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
+    from turbosqueeze_tpu_torch.parallel import pipeline
+
+    datas, levels = _mixed_blocks()
+    datas = [d[:300_000] for d in datas]
+    for ext in (True, False):
+        parsed = [block.tokenize_with_dict(
+            native.compress(d, ext, level=lv)[19:], ext, None)
+            for d, lv in zip(datas, levels)]
+        _token_compare(errs, parsed, datas, f"tokens ext={ext}")
+        say("phase7", ext=ext, blocks=len(datas),
+            bytes=sum(map(len, datas)), exact=True)
+    d = synthetic_text(33_000, seed=113)
+    dict_datas = [synthetic_text(150_000, seed=114), bytes(20_000)]
+    parsed = [block.tokenize_with_dict(next(iter_container(
+        native.compress_dict(x, d, True)))[1], True, d) for x in dict_datas]
+    _token_compare(errs, parsed, dict_datas, "tokens dictionary")
+    say("phase7", dictionary=len(d), prefix_tokens=len(
+        block.dict_prefix_tokens(0, len(d))[0]), exact=True)
+
+    # garbage planes: counts past the chunk, addresses anywhere and near
+    # the planes; the kernel stays inside them and equals its plain version
+    rng = np.random.default_rng(8)
+    pay_rows, out_rows = 64, 96
+    pw = rng.integers(-2**31, 2**31, (4, pay_rows, 128), dtype=np.int32)
+    ta = rng.integers(-2**31, 2**31, (4, 3, 8, 128), dtype=np.int32)
+    tb = rng.integers(-2**31, 2**31, (4, 3, 8, 128), dtype=np.int32)
+    near = rng.integers(0, (pay_rows + out_rows) * 512, (2, 3, 8, 128))
+    ta[2:] = near | rng.integers(0, 128, near.shape) << 24
+    tb[2:] = near[::-1]
+    ta.reshape(4, -1)[:, ::1024] = rng.integers(-50, 1100, (4, 3))
+    got = DK.decode_tokens_batch(*planes_to_torch(pw, ta, tb, device="cuda"),
+                                 out_rows=out_rows)
+    ref = DK.decode_tokens_batch(*planes_to_torch(pw, ta, tb, device="cpu"),
+                                 out_rows=out_rows)
+    check(torch.equal(got.cpu(), ref), "garbage token planes: kernel != plain")
+    say("phase7", garbage_planes="no fault", exact=True)
+
+    # one full level-1 text block, B=1, at the main path's plane shapes
+    stream = streams[1]
+    _, table = scan_block_table(stream)
+    off, psz, ext = table[1]
+    parsed = [block.tokenize_with_dict(stream[off:off + psz], ext, None)]
+    size = parsed[0][5]
+    planes, out_rows = _token_compare(errs, parsed,
+                                      [data[4 * MiB:4 * MiB + size]],
+                                      "tokens full block")
+    dev = [p.cuda() for p in planes]
+    timing["decode_tokens"] = (
+        _cuda_ms(lambda: DK.decode_tokens_batch(*dev, out_rows=out_rows), 5),
+        _host_ms(lambda: DK.decode_tokens_batch(*planes, out_rows=out_rows),
+                 1))
+    say("phase7", full_block=True, tokens=len(parsed[0][1]),
+        kernel_ms=f"{timing['decode_tokens'][0]:.4f}",
+        plain_ms=f"{timing['decode_tokens'][1]:.1f}")
+
+    # the gang kernel with a dictionary: a full block spans three windows
+    full = data[4 * MiB:8 * MiB]
+    (_, payload, ext), = iter_container(native.compress_dict(full, d, True))
+    lw, gw, gm, _ = DG.prep_gang([(payload, ext)], 1, 8, dictionary=d)
+    check(gm[0, 8] == 3, f"dictionary gang: {gm[0, 8]} windows, not 3")
+    kw = dict(nblk=1, slot_recs=8, out_rows=3 * pipeline.DBK.WIN_ROWS,
+              max_win=3)
+    got = DG.decode_gang_batch(*planes_to_torch(lw, gw, gm, device="cuda"),
+                               **kw)
+    ref = DG.decode_gang_batch(*planes_to_torch(lw, gw, gm, device="cpu"),
+                               **kw)
+    _compare(errs, "decode_gang", _bytes_of(got, 0, len(d), len(full)),
+             _bytes_of(ref, 0, len(d), len(full)), full,
+             "gang dictionary, three windows")
+    say("phase7", gang_dictionary=len(d), windows=3, exact=True)
+
+    # the token routes end to end on the 256 MiB containers
+    mb = len(data) / 1e6
+    for level in (0, 1, 2):
+        stream = streams[level]
+        want = native.decompress(stream)
+        check(want == data, f"level {level}: native decode != input")
+        for impl in ("pallas", "xla"):
+            before = counts["decode_tokens"]
+            e2e = []
+            for _ in range(3 if level == 1 else 1):
+                t0 = time.perf_counter()
+                out = _main_path(counts, lambda: pipeline.decompress(
+                    stream, impl=impl))
+                e2e.append((time.perf_counter() - t0) * 1e3)
+                check(out == want, f"{impl} level {level}: != native decode")
+            check(impl == "xla" or counts["decode_tokens"] > before,
+                  f"{impl} level {level}: the token kernel never launched")
+            say("phase7", impl=impl, level=level, input_mb=f"{mb:.1f}",
+                exact=True,
+                decode_MBps=f"{mb / statistics.median(e2e) * 1e3:.1f}",
+                e2e_ms="/".join(f"{t:.1f}" for t in e2e))
+
+    # the pallas route's layers on the level-1 windows
+    stream = streams[1]
+    _, table = scan_block_table(stream)
+    wins = [table[lo:lo + pipeline.WINDOW_BLOCKS]
+            for lo in range(0, len(table), pipeline.WINDOW_BLOCKS)]
+    with ThreadPoolExecutor() as pool:
+        cpu0, t0 = time.process_time(), time.perf_counter()
+        parsed = [pipeline._tokenize_window(stream, w, None, pool)
+                  for w in wins]
+        tok_s, tok_cpu = time.perf_counter() - t0, time.process_time() - cpu0
+        t0 = time.perf_counter()
+        packed = [pipeline._token_planes(p, pool, True) for p in parsed]
+        pack_ms = (time.perf_counter() - t0) * 1e3
+    del parsed
+    t0 = time.perf_counter()
+    dev = [([p.to("cuda", non_blocking=True) for p in planes], rows)
+           for planes, rows in packed]
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3
+    kernel_ms = _cuda_ms(lambda: [DK.decode_tokens_batch(*p, out_rows=r)
+                                  for p, r in dev], 3)
+    del dev, packed
+    say("phase7", impl="pallas", level=1, windows=len(wins),
+        kernel_only_MBps=f"{mb / kernel_ms * 1e3:.1f}",
+        kernel_ms=f"{kernel_ms:.2f}", tokenize_s=f"{tok_s:.3f}",
+        tokenize_cpu_s=f"{tok_cpu:.3f}", pack_ms=f"{pack_ms:.1f}",
+        upload_ms=f"{upload_ms:.1f}")
+
+    # decompress_to_words: the words stay on the card
+    t0 = time.perf_counter()
+    words, sizes, _ = _main_path(counts, lambda: pipeline.decompress_to_words(
+        stream))
+    torch.cuda.synchronize()
+    words_ms = (time.perf_counter() - t0) * 1e3
+    check(words.device.type == "cuda"
+          and tuple(words.shape) == (len(table), DK.OUT_ROWS, 128),
+          f"decompress_to_words: words {tuple(words.shape)}")
+    flat = words.cpu().view(torch.uint8).reshape(len(table), -1)
+    pos = 0
+    for b, n in enumerate(sizes):
+        check(flat[b, :n].numpy().tobytes() == data[pos:pos + n],
+              f"decompress_to_words: block {b} != input")
+        pos += n
+    del words, flat
+    say("phase7", decompress_to_words=True, blocks=len(sizes), exact=True,
+        e2e_ms=f"{words_ms:.1f}")
+
+    # a dictionary container of 16 full blocks through the API and each
+    # route; every full block takes three gang windows
+    part = data[:16 * 4 * MiB]
+    stream = native.compress_dict(part, d, True)
+    want = native.decompress_dict(stream, d)
+    check(want == part, "native dictionary decode != input")
+    pmb = len(part) / 1e6
+    runs = [("api", lambda: tsq.decompress(stream, backend="cuda",
+                                           dictionary=d))]
+    runs += [(impl, lambda impl=impl: pipeline.decompress(
+        stream, impl=impl, dictionary=d))
+        for impl in ("gang", "pallas", "xla", "stream")]
+    for name, fn in runs:
+        before = dict(counts)
+        t0 = time.perf_counter()
+        out = _main_path(counts, fn)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(out == want, f"dictionary {name}: != native.decompress_dict")
+        launched = {k: counts[k] - before[k] for k in counts}
+        # the gang route sends a window the resolver declines to the
+        # stream kernel
+        kernels = {"api": ("decode_gang", "decode_stream"),
+                   "gang": ("decode_gang", "decode_stream"),
+                   "pallas": ("decode_tokens",),
+                   "stream": ("decode_stream",), "xla": ()}[name]
+        check(not kernels or sum(launched[k] for k in kernels) > 0,
+              f"dictionary {name}: no kernel of {kernels} launched")
+        say("phase7", dictionary=len(d), route=name,
+            input_mb=f"{pmb:.1f}", exact=True,
+            decode_MBps=f"{pmb / ms * 1e3:.1f}",
+            launches=",".join(f"{k}:{launched[k]}" for k in kernels))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
@@ -669,10 +889,11 @@ def main() -> int:
     timing = {}
     phase1(errs)
     phase2(errs)
-    phase3(errs, counts, timing)
+    data, streams = phase3(errs, counts, timing)
     phase4(errs, counts, timing)
     phase5(errs, timing)
     phase6(counts)
+    phase7(errs, counts, timing, data, streams)
     check(all(counts.values()),
           f"a kernel of the main path never launched: {counts}")
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]

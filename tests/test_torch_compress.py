@@ -160,8 +160,9 @@ def test_api_dictionary_on_host_backends(native):
         assert tsq.decompress(stream, backend=backend, dictionary=d) == data
     with pytest.raises(NotImplementedError, match="native or cuda"):
         tsq.compress(data, backend="oracle", dictionary=d)
-    with pytest.raises(NotImplementedError, match="dictionaries"):
-        tsq.decompress(stream, backend="cuda", dictionary=d)
+    # and the cuda decode to the device pipeline's dictionary routes
+    assert tsq.decompress(stream, backend="cuda", device="cpu",
+                          dictionary=d) == data
 
 
 @pytest.mark.parametrize("route", ["compress", "decompress"])

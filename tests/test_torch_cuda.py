@@ -8,6 +8,7 @@ not needed there):
 """
 
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -178,3 +179,126 @@ def test_wrapper_refuses_planes_on_two_devices(native):
     with pytest.raises(ValueError, match="meta is on cpu"):
         PE.emit_batch(iw, None, torch.zeros((1, 8), dtype=torch.int32),
                       matcher="table")
+
+
+def _token_planes(native, datas, ext, dictionary=None):
+    """Token and payload planes of ``datas`` compressed at the _MIXED
+    levels (with ``dictionary``: by ``compress_dict``); returns (planes,
+    out_rows, base, sizes)."""
+    from turbosqueeze_tpu_torch import block
+
+    if dictionary:
+        payloads = [next(iter_container(native.compress_dict(
+            d, dictionary, ext)))[1] for d in datas]
+    else:
+        payloads = [native.compress(d, ext, level=lv)[19:]
+                    for d, (_, lv) in zip(datas, _MIXED)]
+    parsed = [block.tokenize_with_dict(p, ext, dictionary) for p in payloads]
+    with ThreadPoolExecutor() as pool:
+        planes, out_rows = pipeline._token_planes(parsed, pool, False)
+    return planes, out_rows, parsed[0][6], [p[5] for p in parsed]
+
+
+@pytest.mark.parametrize("ext, with_dict", [(True, False), (False, False),
+                                            (True, True)])
+def test_token_kernel_matches_plain(native, ext, with_dict):
+    """Mixed classes and levels, ext on and off, and a dictionary staged
+    by prefix tokens: the kernel equals its plain version and the input."""
+    datas = [make()[:30_000] for make, _ in _MIXED]
+    d = synthetic_text(16_400, seed=36) if with_dict else None
+    planes, out_rows, base, sizes = _token_planes(native, datas, ext, d)
+    assert sizes == list(map(len, datas))
+    before = PT.launches
+    got = PT.decode_tokens_batch(*(p.cuda() for p in planes),
+                                 out_rows=out_rows)
+    torch.cuda.synchronize()
+    assert PT.launches == before + 1
+    ref = PT.decode_tokens_batch(*planes, out_rows=out_rows)
+    assert got.device.type == "cuda" and got.shape == ref.shape
+    for k, x in enumerate(datas):
+        assert _words_bytes(got, k, base, len(x)) == x, f"block {k}"
+        assert _words_bytes(ref, k, base, len(x)) == x, f"plain block {k}"
+
+
+def test_token_kernel_garbage_planes_match_plain(native):
+    """Random counts, destinations and sources: the kernel stays inside
+    its planes and gives its plain version's words exactly."""
+    rng = np.random.default_rng(40)
+    pay_rows, out_rows = 16, 24
+    pw = rng.integers(-2**31, 2**31, (3, pay_rows, 128), dtype=np.int32)
+    ta = rng.integers(-2**31, 2**31, (3, 2, 8, 128), dtype=np.int32)
+    tb = rng.integers(-2**31, 2**31, (3, 2, 8, 128), dtype=np.int32)
+    # small counts, and addresses near the planes so that bytes land
+    ta.reshape(3, -1)[:, ::1024] = [[5000, 7], [-3, 301], [1022, 1023]]
+    near = rng.integers(0, (pay_rows + out_rows) * 512, (3, 2, 8, 128))
+    ta[1] = (near[1] | rng.integers(0, 128, near[1].shape) << 24).astype(
+        np.int32)
+    ta.reshape(3, -1)[1, ::1024] = (-3, 301)
+    tb[1:] = near[1:].astype(np.int32)
+    got = PT.decode_tokens_batch(*planes_to_torch(pw, ta, tb, device="cuda"),
+                                 out_rows=out_rows)
+    ref = PT.decode_tokens_batch(*planes_to_torch(pw, ta, tb, device="cpu"),
+                                 out_rows=out_rows)
+    assert torch.equal(got.cpu(), ref)
+
+
+def test_gang_kernel_three_windows_matches_plain(native):
+    """A full 4 MiB block with a 33 KB dictionary spans three 2 MiB
+    windows of the dict-extended space (max_win = 3)."""
+    d = synthetic_text(33_000, seed=113)
+    data = synthetic_text(1 << 22, seed=114)
+    (_, payload, ext), = iter_container(native.compress_dict(data, d, True))
+    lw, gw, gm, _ = PG.prep_gang([(payload, ext)], 1, 8, dictionary=d)
+    assert gm[0, 8] == 3
+    kw = dict(nblk=1, slot_recs=8, out_rows=3 * pipeline.DBK.WIN_ROWS,
+              max_win=3)
+    got = PG.decode_gang_batch(*planes_to_torch(lw, gw, gm, device="cuda"),
+                               **kw)
+    ref = PG.decode_gang_batch(*planes_to_torch(lw, gw, gm, device="cpu"),
+                               **kw)
+    assert _words_bytes(got, 0, len(d), len(data)) == data
+    assert _words_bytes(ref, 0, len(d), len(data)) == data
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla", "stream", "gang"])
+def test_dictionary_routes_match_native(native, impl):
+    """Each route with a dictionary, on a container with a full block (the
+    gang route's third window) and a short one."""
+    import turbosqueeze_tpu_torch as tsq
+
+    d = synthetic_text(33_000, seed=113)
+    data = synthetic_text((1 << 22) + 70_000, seed=115)
+    stream = native.compress_dict(data, d, True)
+    PT.launches = PG.launches = PS.launches = 0
+    got = pipeline.decompress(stream, device="cuda", impl=impl, dictionary=d)
+    assert got == native.decompress_dict(stream, d) == data
+    launched = {"pallas": PT.launches, "gang": PG.launches,
+                "stream": PS.launches}
+    assert launched.get(impl, 1) > 0
+    if impl == "gang":
+        assert tsq.decompress(stream, backend="cuda", dictionary=d) == data
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_tokenized_routes_match_native(native, impl):
+    data = b"".join(make() for make, _ in _MIXED) * 30
+    for level in (0, 1, 2):
+        stream = native.compress(data, True, level=level)
+        PT.launches = 0
+        assert pipeline.decompress(stream, device="cuda", impl=impl) == data
+        assert (PT.launches > 0) == (impl == "pallas")
+
+
+@pytest.mark.parametrize("impl", ["pallas", "stream"])
+def test_decompress_to_words_on_the_card(native, impl):
+    data = synthetic_text((1 << 22) + 90_000, seed=116)
+    stream = native.compress(data, True, level=1)
+    PT.launches = 0
+    words, sizes, hdr = pipeline.decompress_to_words(stream, device="cuda",
+                                                     impl=impl,
+                                                     window_blocks=1)
+    assert words.device.type == "cuda" and hdr.n_blocks == 2
+    assert tuple(words.shape) == (2, PT.OUT_ROWS, 128)
+    assert b"".join(_words_bytes(words, b, 0, n)
+                    for b, n in enumerate(sizes)) == data
+    assert (PT.launches == 2) == (impl == "pallas")

@@ -102,6 +102,7 @@ def test_prep_gang_declines_like_reference(monkeypatch):
     from turbosqueeze_tpu.runtime import native
 
     pe = _payloads(_MIXED[0][:2], (0, 1))
-    monkeypatch.setattr(native, "bulk_prep", lambda payload, ext: None)
+    monkeypatch.setattr(native, "bulk_prep",
+                        lambda payload, ext, dictionary=None: None)
     assert RG.prep_gang(pe, 1) is None
     assert PG.prep_gang(pe, 1) is None

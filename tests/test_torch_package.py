@@ -38,9 +38,12 @@ for m in [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]:
     del sys.modules[m]
 sys.meta_path.insert(0, _NoJax())
 import turbosqueeze_tpu_torch
+import turbosqueeze_tpu_torch.block
 import turbosqueeze_tpu_torch.kernels._build
 import turbosqueeze_tpu_torch.kernels.decode_gang
 import turbosqueeze_tpu_torch.kernels.decode_stream
+import turbosqueeze_tpu_torch.kernels.decode_tokens
+import turbosqueeze_tpu_torch.kernels.decode_xla
 import turbosqueeze_tpu_torch.kernels.encode_emit
 import turbosqueeze_tpu_torch.kernels.encode_xla
 import turbosqueeze_tpu_torch.parallel.pipeline
@@ -60,12 +63,14 @@ def test_import_never_loads_jax():
 
 
 @pytest.mark.parametrize("port, ref, names", [
-    (PT, RT, ("LANES", "ROW_BYTES", "OUT_ROWS", "PAY_ROWS")),
+    (PT, RT, ("LANES", "ROW_BYTES", "OUT_ROWS", "PAY_ROWS",
+              "TOKENS_PER_CHUNK", "_TOKENS_CAP", "_SLOT_ROWS", "_DST_MASK",
+              "_LEN_SHIFT", "_LEN_MASK")),
     (PB, RB, ("WIN_BYTES", "WIN_ROWS", "TAIL_ROWS", "TAIL_BYTES", "MAX_WIN")),
     (PG, RG, ("GANG_WORDS", "GMETA_WORDS")),
     (PS, RS, ("_WIN_ROWS",)),
     (PE, RE, ("IN_ROWS", "OUT_ROWS", "CAND_ROWS", "_DICT_ROWS")),
-    (PP, RP, ("GANG_SRECS",)),
+    (PP, RP, ("GANG_SRECS", "_DICT_PAD")),
 ], ids=["decode_tokens", "decode_bulk", "decode_gang", "decode_stream",
         "encode_emit", "pipeline"])
 def test_redeclared_constants(port, ref, names):

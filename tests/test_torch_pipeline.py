@@ -118,7 +118,7 @@ def test_declared_size_mismatch_raises(small):
 def test_unknown_impl_raises(native):
     stream = native.compress(b"abc" * 100, True)
     with pytest.raises(ValueError, match="impl"):
-        pipeline.decompress(stream, device="cpu", impl="pallas")
+        pipeline.decompress(stream, device="cpu", impl="nonesuch")
 
 
 @pytest.mark.parametrize("backend", ["auto", "native", "oracle"])
@@ -133,7 +133,7 @@ def test_api_rejects_unported_routes(native):
     with pytest.raises(NotImplementedError):
         tsq.decompress(b"TSQX" + bytes(60), backend="cuda")
     with pytest.raises(NotImplementedError):
-        tsq.decompress(stream, backend="cuda", dictionary=b"dict")
+        pipeline.decompress(stream, device="cpu", impl="bulk")
     with pytest.raises(NotImplementedError):
         pipeline.compress(b"data", device="cpu", emit_impl="bulk")
     with pytest.raises(NotImplementedError):

@@ -14,7 +14,8 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("decode_gang.cu", "decode_stream.cu", "encode_emit.cu")
+SOURCES = ("decode_gang.cu", "decode_stream.cu", "decode_tokens.cu",
+           "encode_emit.cu")
 LIB_PATH = (Path(__file__).resolve().parents[2] / "build" / "cuda"
             / "libtsq_torch_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -81,6 +82,10 @@ def library() -> ctypes.CDLL:
         # dict_rows, stream
         lib.tsq_decode_stream.argtypes = [P, P, P, P, I, I, I, I, P]
         lib.tsq_decode_stream.restype = I
+        # payload, tok_a, tok_b, out, n_blocks, n_chunks, pay_rows,
+        # out_rows, stream
+        lib.tsq_decode_tokens.argtypes = [P, P, P, P, I, I, I, I, P]
+        lib.tsq_decode_tokens.restype = I
         # input, cand, table, meta, out, osz, n_blocks, in_rows, cand_rows,
         # out_rows, ext, table_mode, stream
         lib.tsq_encode_emit.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]

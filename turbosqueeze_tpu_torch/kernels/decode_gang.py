@@ -205,12 +205,15 @@ def pack_gang_words(rec: np.ndarray, rec_rows: int) -> np.ndarray:
     return pack_rec_words(rec, rec_rows)
 
 
-def prep_gang(payloads_ext, nblk: int, slot_recs: int = 8, map_fn=map):
+def prep_gang(payloads_ext, nblk: int, slot_recs: int = 8, map_fn=map,
+              dictionary: bytes = None):
     """bulk_prep + bulk_gang a list of (payload, ext); returns packed numpy
     planes, or None if any block needs the stream-parser fallback.
     ``map_fn`` maps the per-block resolves and per-group merges (the native
     core releases the GIL, so a thread pool's ``map`` runs them in
-    parallel).
+    parallel). With ``dictionary`` the planes cover the dict-extended
+    output space ``[0, dict_len + size)``, up to three 2 MiB windows
+    (decode with ``max_win=3``); block b's bytes start at ``dict_len``.
 
     (lit_words (Bn, LR, 128), gang_words (Bn//nblk, RR, 128),
     gmeta (Bn//nblk, 32), sizes) with Bn = len rounded up to a multiple
@@ -218,7 +221,8 @@ def prep_gang(payloads_ext, nblk: int, slot_recs: int = 8, map_fn=map):
     """
     from turbosqueeze_tpu.runtime import native
 
-    preps = list(map_fn(lambda pe: native.bulk_prep(*pe), payloads_ext))
+    preps = list(map_fn(lambda pe: native.bulk_prep(*pe, dictionary),
+                        payloads_ext))
     if any(p is None for p in preps):
         return None
     sizes = [int(p[2][0]) for p in preps]

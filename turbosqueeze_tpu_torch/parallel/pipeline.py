@@ -1,17 +1,32 @@
 """Device decode and encode of a ``.tsq`` container: the port of
-``turbosqueeze_tpu/parallel/pipeline.py::decompress`` and ``::compress``.
+``turbosqueeze_tpu/parallel/pipeline.py::decompress``,
+``::decompress_to_words`` and ``::compress``.
 
 Blocks stream through the device in windows.
 
-Decode: for each window the host scans the block table, resolves every
-block with the native core (``native.bulk_prep``, then
-``native.bulk_gang``) into literal planes and a gang stream, and the gang
-kernel decodes the window; a window with a block the resolver declines
-goes through the raw-payload stream kernel instead. Blocks are assembled in
-order on the host and the total is checked against the container's
-declared size. Kernel launches and the device-to-host copy into pinned
-memory are asynchronous, so window k+1's host resolve runs while window k
-decodes; each window is waited for only when it is drained.
+Decode: for each window the host scans the block table and prepares the
+blocks for the route ``impl`` names:
+
+  * ``"gang"``: the native core resolves every block (``native.bulk_prep``,
+    then ``native.bulk_gang``) into literal planes and a gang stream, and
+    the gang kernel decodes the window; a window with a block the resolver
+    declines goes through the stream kernel instead;
+  * ``"stream"``: the raw payloads are the only input of the stream kernel,
+    which parses them on the card;
+  * ``"pallas"``: the native tokenizer parses every block on the host, in a
+    thread pool, and the token-chunk kernel moves the bytes;
+  * ``"xla"``: the same tokens go through the scatter/gather decode of
+    ``kernels/decode_xla.py``, in torch ops on the device.
+
+A preset dictionary rides every route in the dict-extended output space
+``[0, dict_len + size)``: the resolver stages it in the literal plane (up
+to a third 2 MiB gang window), the stream kernel at the head of the output,
+and the tokenizer's routes as synthetic literal tokens
+(``block.tokenize_with_dict``); each block is sliced at ``dict_len``.
+Blocks are assembled in order on the host and the total is checked against
+the container's declared size. Kernel launches and the device-to-host copy
+into pinned memory are asynchronous, so window k+1's host work runs while
+window k decodes; each window is waited for only when it is drained.
 
 Encode: the host packs each window's bytes into pinned memory and copies
 them to the device, where the level picks the route: level 0 runs the
@@ -33,9 +48,11 @@ from turbosqueeze_tpu.format import (ContainerHeader, FormatError,
                                      pack_block_header, scan_block_table,
                                      split_blocks)
 
+from ..kernels import decode_bulk as DBK
 from ..kernels import decode_gang as DGK
 from ..kernels import decode_stream as DST
 from ..kernels import decode_tokens as DK
+from ..kernels import decode_xla as DXL
 from ..kernels import encode_emit as EE
 from ..kernels import encode_xla as EX
 from ..kernels.decode_tokens import planes_to_torch
@@ -51,6 +68,16 @@ GANG_NBLK = 1
 # blocks per window: one CTA decodes one block, so a window should put many
 # blocks in flight; 32 blocks is 128 MiB of output per window
 WINDOW_BLOCKS = 32
+# the xla route holds a few int64 index arrays over every byte of its
+# window: 16 full blocks make each about 0.55 GB on the device
+XLA_WINDOW_BLOCKS = 16
+
+_DICT_PAD = 1 << 16  # dict-extended output/payload headroom (bucketed)
+_BULK_IMPLS = ("bulk", "bulk2", "bulkn")
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 def _declared_sizes(stream, table_window):
@@ -61,10 +88,11 @@ def _declared_sizes(stream, table_window):
 
 class _Pending:
     """A window's decoded words on their way to the host: ``host`` is
-    final once ``done`` (a CUDA event, or None on the CPU) has fired."""
+    final once ``done`` (a CUDA event, or None on the CPU) has fired.
+    Block b's bytes are ``[base, base + sizes[b])`` of its row."""
 
-    def __init__(self, words: torch.Tensor, sizes: List[int]):
-        self.sizes = sizes
+    def __init__(self, words: torch.Tensor, sizes: List[int], base: int = 0):
+        self.sizes, self.base = sizes, base
         if words.device.type == "cuda":
             self.host = torch.empty(words.shape, dtype=words.dtype,
                                     pin_memory=True)
@@ -78,66 +106,176 @@ class _Pending:
         if self.done is not None:
             self.done.synchronize()
         flat = self.host.view(torch.uint8).reshape(self.host.shape[0], -1)
-        return [flat[b, :n].numpy().tobytes()
+        return [flat[b, self.base:self.base + n].numpy().tobytes()
                 for b, n in enumerate(self.sizes)]
 
 
-def _bulk_window_words(stream, table_window, device, pool):
+def _upload(arrays, device) -> list:
+    """numpy arrays -> tensors on ``device``; a CUDA copy goes through
+    pinned memory and does not wait."""
+    out = []
+    for a in arrays:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        out.append(t.pin_memory().to(device, non_blocking=True)
+                   if device.type == "cuda" else t)
+    return out
+
+
+def _gang_window(stream, table_window, device, pool, dictionary=None):
     """Resolve one window of blocks on the host and launch the gang kernel
-    on it. Returns the pending words, or None when the resolver declines a
+    on it. Returns (words, dict_len), or None when the resolver declines a
     block (the window then goes to the stream kernel)."""
     payloads = [(stream[off:off + psz], ext) for off, psz, ext in table_window]
     planes = DGK.prep_gang(payloads, GANG_NBLK, GANG_SRECS[GANG_NBLK],
-                           map_fn=pool.map)
+                           map_fn=pool.map, dictionary=dictionary)
     if planes is None:
         return None
+    base = len(dictionary) if dictionary else 0
     lit, gang, gmeta, _ = planes
+    # the dict-extended output may reach into a third 2 MiB window
     words = DGK.decode_gang_batch(
         *planes_to_torch(lit, gang, gmeta, device=device), nblk=GANG_NBLK,
-        slot_recs=GANG_SRECS[GANG_NBLK])
-    return _Pending(words, _declared_sizes(stream, table_window))
+        slot_recs=GANG_SRECS[GANG_NBLK],
+        out_rows=3 * DBK.WIN_ROWS if base else DK.OUT_ROWS,
+        max_win=3 if base else DBK.MAX_WIN)
+    return words, base
 
 
-def _decode_window_stream(stream, table_window, device):
-    """Launch the raw-payload stream kernel on one window of blocks."""
+def _stream_window(stream, table_window, device, pool, dictionary=None):
+    """Launch the raw-payload stream kernel on one window of blocks.
+    Returns (words, dict_len)."""
+    dlen = len(dictionary) if dictionary else 0
     sizes = _declared_sizes(stream, table_window)
     pw = np.zeros((len(table_window), DK.PAY_ROWS, DK.LANES), np.int32)
     for b, (off, psz, _) in enumerate(table_window):
         pw[b] = DK.pack_payload_words(stream[off:off + psz])
-    meta = DST.pack_meta([ext for _, _, ext in table_window], sizes)
-    words = DST.decode_stream_batch(
-        *planes_to_torch(pw, meta, device=device), out_rows=DK.OUT_ROWS)
-    return _Pending(words, sizes)
+    planes = [pw, DST.pack_meta([ext for _, _, ext in table_window], sizes,
+                                dict_len=dlen)]
+    if dlen:
+        planes.append(DST.pack_dict_words(dictionary))
+    # dict-extended writes reach dict_len + size: widen the output
+    out_rows = DK.OUT_ROWS + (_DICT_PAD // DK.ROW_BYTES if dlen else 0)
+    words = DST.decode_stream_batch(*planes_to_torch(*planes, device=device),
+                                    out_rows=out_rows)
+    return words, dlen
+
+
+def _tokenize_window(stream, table_window, dictionary, pool):
+    """Host tokenization of a window's blocks, one block per task of the
+    pool (the native core releases the GIL)."""
+    from ..block import tokenize_with_dict
+
+    return list(pool.map(lambda e: tokenize_with_dict(
+        stream[e[0]:e[0] + e[1]], e[2], dictionary), table_window))
+
+
+def _token_planes(parsed, pool, pin: bool):
+    """Pack a window's tokenized blocks into the token kernel's planes, one
+    block per task of the pool, in pinned memory when ``pin``. Returns
+    ((payload, tok_a, tok_b) host tensors, out_rows)."""
+    pad_rows = _DICT_PAD // DK.ROW_BYTES if parsed[0][6] else 0
+    pay_rows, out_rows = DK.PAY_ROWS + pad_rows, DK.OUT_ROWS + pad_rows
+    # the chunk count is bucketed, as in the JAX package
+    n_chunks = _round_up(DK.n_chunks_for_tokens(
+        max(len(p[1]) for p in parsed)), 64)
+    B = len(parsed)
+    planes = [torch.empty(shape, dtype=torch.int32, pin_memory=pin)
+              for shape in ((B, pay_rows, DK.LANES),
+                            *[(B, n_chunks, DK._SLOT_ROWS, DK.LANES)] * 2)]
+    pay, tok_a, tok_b = (p.numpy() for p in planes)
+
+    def pack(b):
+        p = parsed[b]
+        pay[b] = DK.pack_payload_words(p[0], pay_rows)
+        tok_a[b], tok_b[b] = DK.pack_tokens(*p[1:5], n_chunks,
+                                            pay_rows=pay_rows)
+
+    list(pool.map(pack, range(B)))
+    return planes, out_rows
+
+
+def _pallas_window(stream, table_window, device, pool, dictionary=None):
+    """Tokenize one window on the host and launch the token-chunk kernel
+    on it. Returns (words, dict_len)."""
+    parsed = _tokenize_window(stream, table_window, dictionary, pool)
+    planes, out_rows = _token_planes(parsed, pool, device.type == "cuda")
+    planes = [p.to(device, non_blocking=True) for p in planes]
+    return DK.decode_tokens_batch(*planes, out_rows=out_rows), parsed[0][6]
+
+
+def _xla_window(stream, table_window, device, pool, dictionary=None):
+    """Tokenize one window on the host and decode it with the torch
+    scatter/gather formulation. Returns (bytes (B, n_out) uint8,
+    dict_len)."""
+    parsed = _tokenize_window(stream, table_window, dictionary, pool)
+    base = parsed[0][6]
+    pad = _DICT_PAD if base else 0
+    n_out = DXL.OUT_N + pad
+    toks = DXL.pack_token_batch([p[1:5] for p in parsed], n_out)
+    pay = DXL.pack_payload_batch([p[0] for p in parsed], DXL.PAY_N + pad)
+    return DXL.decode_batch_xla(*_upload((*toks, pay), device),
+                                n_out=n_out), base
+
+
+_WINDOW_ROUTES = {"gang": _gang_window, "stream": _stream_window,
+                  "pallas": _pallas_window, "xla": _xla_window}
+
+
+def _check_impl(impl: str, routes) -> None:
+    """Raise for a route that is not ported, unknown, or that needs the
+    native core where it is not built; loads the core otherwise (its
+    loader is not safe to enter from the pool's threads at once)."""
+    from turbosqueeze_tpu.runtime import native
+
+    if impl in _BULK_IMPLS:
+        raise NotImplementedError(
+            f"impl={impl!r} is not ported yet (ROADMAP.md, queue 2 #4: the "
+            f"decode_bulk kernels)")
+    if impl not in routes:
+        raise ValueError(f"unknown impl: {impl!r}")
+    if impl != "stream" and not native.available():
+        raise RuntimeError(f"impl={impl!r} needs the native core "
+                           "(run `make -C csrc`)")
+
+
+def _check_dictionary(dictionary):
+    """A usable dictionary, or None for none (an empty one is none)."""
+    from turbosqueeze_tpu.runtime import native
+
+    if not dictionary:
+        return None
+    if len(dictionary) > native.MAX_DICT:
+        raise ValueError(f"dictionary must be 1..{native.MAX_DICT} bytes")
+    return dictionary
 
 
 def decompress(stream: bytes, device=None, impl: str = "auto",
-               window_blocks: int = 0, progress=None) -> bytes:
+               window_blocks: int = 0, dictionary: bytes = None,
+               progress=None) -> bytes:
     """Decode a ``.tsq`` container on ``device`` -> its bytes.
 
     device: a CUDA device (default: the first), or ``"cpu"`` for the
     kernels' plain PyTorch versions; a CUDA device with no GPU raises.
     impl: ``"gang"`` = host resolve + gang kernel, with the stream kernel
     for windows the resolver declines; ``"stream"`` = the stream kernel
-    for every window; ``"auto"`` = gang when the native core is built,
-    else stream. window_blocks: blocks per window (default
-    ``WINDOW_BLOCKS``). progress: called with ``(blocks_done, n_blocks)``
-    once per block, in block order, as the blocks are assembled.
+    for every window; ``"pallas"`` = host tokenize + token-chunk kernel;
+    ``"xla"`` = host tokenize + the torch scatter/gather decode;
+    ``"auto"`` = gang when the native core is built, else stream. The bulk
+    routes are not ported yet. window_blocks: blocks per window (default
+    ``WINDOW_BLOCKS``, ``XLA_WINDOW_BLOCKS`` for xla). dictionary: the
+    preset dictionary the container was compressed with. progress: called
+    with ``(blocks_done, n_blocks)`` once per block, in block order, as the
+    blocks are assembled.
     """
     from turbosqueeze_tpu.runtime import native
 
-    # available() also loads the core: its loader is not safe to enter
-    # from the pool's threads at once
-    have_native = native.available()
     if impl == "auto":
-        impl = "gang" if have_native else "stream"
-    if impl not in ("gang", "stream"):
-        raise ValueError(f"unknown impl: {impl!r}")
-    if impl == "gang" and not have_native:
-        raise RuntimeError("impl='gang' needs the native core "
-                           "(run `make -C csrc`)")
+        impl = "gang" if native.available() else "stream"
+    _check_impl(impl, _WINDOW_ROUTES)
+    dictionary = _check_dictionary(dictionary)
     dev = mesh_mod.block_devices(device)[0]
     if window_blocks <= 0:
-        window_blocks = WINDOW_BLOCKS
+        window_blocks = XLA_WINDOW_BLOCKS if impl == "xla" else WINDOW_BLOCKS
 
     hdr, table = scan_block_table(stream)
     wins = [table[lo:lo + window_blocks]
@@ -153,10 +291,10 @@ def decompress(stream: bytes, device=None, impl: str = "auto",
     pending = None
     with ThreadPoolExecutor() as pool:  # the native core releases the GIL
         for win in wins:
-            cur = (_bulk_window_words(stream, win, dev, pool)
-                   if impl == "gang" else None)
-            if cur is None:
-                cur = _decode_window_stream(stream, win, dev)
+            r = _WINDOW_ROUTES[impl](stream, win, dev, pool, dictionary)
+            if r is None:  # the resolver declined a block
+                r = _stream_window(stream, win, dev, pool, dictionary)
+            cur = _Pending(r[0], _declared_sizes(stream, win), r[1])
             if pending is not None:  # drain window k after launching k+1
                 drain(pending)
             pending = cur
@@ -167,6 +305,32 @@ def decompress(stream: bytes, device=None, impl: str = "auto",
         raise FormatError(
             f"decoded {len(out)} bytes, container declares {hdr.total_size}")
     return out
+
+
+def decompress_to_words(stream: bytes, device=None, impl: str = "pallas",
+                        window_blocks: int = 0):
+    """Decode a ``.tsq`` container and leave the words on the device.
+
+    Returns (words, sizes, header): ``words`` is (B, OUT_ROWS, 128) int32
+    on ``device`` with B = max(n_blocks, 1); row b holds block b's decoded
+    bytes as little-endian words, its first ``sizes[b]`` bytes defined.
+    impl: ``"pallas"`` (host tokenize + token-chunk kernel) or
+    ``"stream"`` (the raw-payload stream kernel). Windows of
+    ``window_blocks`` (default ``WINDOW_BLOCKS``) decode into slices of
+    the one output tensor.
+    """
+    _check_impl(impl, ("pallas", "stream"))
+    dev = mesh_mod.block_devices(device)[0]
+    window_blocks = window_blocks if window_blocks > 0 else WINDOW_BLOCKS
+    hdr, table = scan_block_table(stream)
+    words = torch.zeros((max(len(table), 1), DK.OUT_ROWS, DK.LANES),
+                        dtype=torch.int32, device=dev)
+    with ThreadPoolExecutor() as pool:
+        for lo in range(0, len(table), window_blocks):
+            win = table[lo:lo + window_blocks]
+            words[lo:lo + len(win)] = _WINDOW_ROUTES[impl](stream, win, dev,
+                                                           pool)[0]
+    return words, _declared_sizes(stream, table), hdr
 
 
 # --- compress ----------------------------------------------------------------

@@ -8,8 +8,7 @@ Backends:
   * ``oracle`` — the shared pure-Python exact codec.
   * ``auto``   — as in the JAX package: native if built, else oracle.
 
-TSQX containers, and preset dictionaries on the ``cuda`` decode, are not
-ported yet.
+TSQX containers are not ported yet.
 """
 
 from __future__ import annotations
@@ -73,18 +72,19 @@ def compress(data: bytes, ext: bool = True, backend: str = "auto",
 def decompress(stream: bytes, backend: str = "auto",
                dictionary: bytes = None, device=None,
                progress=None) -> bytes:
-    """Decompress a .tsq container. ``device`` picks the card for
-    ``backend='cuda'`` (default: the first CUDA device). ``progress`` is
-    called with ``(blocks_done, n_blocks)`` per block."""
+    """Decompress a .tsq container. ``dictionary`` is the preset
+    dictionary it was compressed with, if any. ``device`` picks the card
+    for ``backend='cuda'`` (default: the first CUDA device). ``progress``
+    is called with ``(blocks_done, n_blocks)`` per block."""
     if len(stream) >= 4 and stream[:4] == b"TSQX":
         raise NotImplementedError("TSQX containers are not ported yet")
     if len(stream) < 16 or stream[:4] != b"TSQ1":
         raise FormatError("not a TSQ1 stream")
     b = _resolve(backend)
+    if b == "cuda":
+        return pipeline.decompress(stream, device=device,
+                                   dictionary=dictionary, progress=progress)
     if dictionary is not None:
-        if b == "cuda":
-            raise NotImplementedError(
-                "preset dictionaries are not ported to the cuda decode yet")
         if b == "oracle":
             from turbosqueeze_tpu import reference_codec
 
@@ -92,8 +92,6 @@ def decompress(stream: bytes, backend: str = "auto",
         from turbosqueeze_tpu.runtime import native
 
         return native.decompress_dict(stream, dictionary, progress=progress)
-    if b == "cuda":
-        return pipeline.decompress(stream, device=device, progress=progress)
     if b == "oracle":
         from turbosqueeze_tpu import reference_codec
 
