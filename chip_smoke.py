@@ -5,12 +5,15 @@ The main paths are device decode and device compress of ``.tsq``
 containers (``turbosqueeze_tpu_torch.decompress(stream, backend="cuda")``
 and ``compress(data, backend="cuda", level=L)``), and the host-tokenized
 decode (``pipeline.decompress(stream, impl="pallas")``,
-``decompress_to_words``). They run four hand-written CUDA kernels: the
-gang-stream decoder, the raw-payload stream decoder, the token emitter (two
-matchers: the upstream's hash table at level 0, phase-A candidates at level
-1) and the token-chunk decoder. Phases:
+``decompress_to_words``), and the bulk record-stream decode
+(``pipeline.decompress(stream, impl="bulk"|"bulk2"|"bulkn")``). They run
+five hand-written CUDA kernels: the gang-stream decoder, the raw-payload
+stream decoder, the token emitter (two matchers: the upstream's hash table
+at level 0, phase-A candidates at level 1), the token-chunk decoder and the
+bulk decoder (three stream ABIs, one wrapper each). Phases:
 
-  0. the card; rebuild the native host core and build the CUDA kernels;
+  0. the card; rebuild the port's native host core and build the CUDA
+     kernels, at once;
   1. the gang kernel against its plain PyTorch version, per
      (nblk, slot_recs), over mixed corpora and levels;
   2. the stream kernel against its plain version, ext on and off, and with
@@ -34,13 +37,22 @@ matchers: the upstream's hash table at level 0, phase-A candidates at level
      3's containers through ``impl="pallas"`` and ``impl="xla"`` and
      ``decompress_to_words``, against the native decoder and timed; and a
      64 MiB dictionary container through ``decompress(backend="cuda",
-     dictionary=d)`` and every route, against ``native.decompress_dict``.
+     dictionary=d)`` and every route, against ``native.decompress_dict``;
+  8. the bulk kernel through its three wrappers against its plain version
+     (mixed blocks: levels 0-2, ext on and off, a two-window block; a
+     dictionary in three windows; garbage planes; one full level-1 block
+     per ABI, timed); phase 3's containers through ``impl="bulk"``,
+     ``"bulk2"`` and ``"bulkn"``, against the input and the native decoder,
+     timed with the layers apart; and phase 7's dictionary container
+     through the three routes.
 
 Every kernel is held against its plain version at zero tolerance over the
 bytes the format defines (each block's first ``size`` bytes, or each
 payload's first ``osz`` bytes). Any failure raises and the script exits
-non-zero. The last lines are a JSON record of
-the kernels and the device line. Run from the repository root:
+non-zero. The last lines are a JSON record of the kernels (each with its
+launches on a main path, its time and its plain version's on one full
+block, and the least time the card could take for that block's bytes) and
+the device line. Run from the repository root:
 
     python3 chip_smoke.py
 """
@@ -71,6 +83,27 @@ KERNELS = {  # name -> (source in the port, the TPU kernel it replaces)
                          "turbosqueeze_tpu/kernels/encode_emit.py:181"),
     "decode_tokens": ("turbosqueeze_tpu_torch/kernels/csrc/decode_tokens.cu",
                       "turbosqueeze_tpu/kernels/decode_tokens.py:171"),
+    "decode_bulk": ("turbosqueeze_tpu_torch/kernels/csrc/decode_bulk.cu",
+                    "turbosqueeze_tpu/kernels/decode_bulk.py:233"),
+    "decode_bulk2": ("turbosqueeze_tpu_torch/kernels/csrc/decode_bulk.cu",
+                     "turbosqueeze_tpu/kernels/decode_bulk.py:316"),
+    "decode_bulkn": ("turbosqueeze_tpu_torch/kernels/csrc/decode_bulk.cu",
+                     "turbosqueeze_tpu/kernels/decode_bulk.py:422"),
+}
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM5 80 GB: 3.35 TB/s
+# The TPU kernels still to port: the bytes one full 4 MiB block's planes
+# take in and out of each, from their wrappers' shapes (512-byte rows,
+# 32-byte meta words): turbosqueeze_tpu/kernels/encode_bulk.py (input
+# IN_ROWS 8336, candidates and next_valid CAND_ROWS 33320 each, side
+# SIDE_ROWS 8192, records REC_ROWS 12288, payload OUT_ROWS_BULK 12288) and
+# encode_flat.py (descriptors DESC_ROWS 16384).
+TO_PORT_BYTES = {
+    "turbosqueeze_tpu/kernels/encode_bulk.py:85 _decide_kernel":
+        (8336 + 2 * 33320 + 8192 + 12288) * 512 + 2 * 32,
+    "turbosqueeze_tpu/kernels/encode_bulk.py:607 _assemble_kernel":
+        (8336 + 8192 + 12288 + 12288) * 512 + 32,
+    "turbosqueeze_tpu/kernels/encode_flat.py:296 _flat_decide_kernel":
+        (8336 + 2 * 33320 + 16384) * 512 + 2 * 32,
 }
 
 
@@ -120,6 +153,12 @@ def _cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def _nbytes(*tensors) -> int:
+    """Bytes of the tensors a kernel reads or writes (None: no tensor)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
 def _host_ms(fn, reps: int) -> float:
     times = []
     for _ in range(reps):
@@ -135,18 +174,22 @@ def phase0():
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     name = torch.cuda.get_device_name(0)
-    t0 = time.perf_counter()
-    # build/ may hold a core built with -march=native for another CPU
-    r = subprocess.run(["make", "-C", str(REPO / "csrc"), "-B", "-j8"],
-                       capture_output=True, text=True)
-    check(r.returncode == 0, f"native core build failed:\n{r.stderr}")
-    native_s = time.perf_counter() - t0
     from turbosqueeze_tpu_torch.kernels import _build
+    from turbosqueeze_tpu_torch.runtime import native
 
-    t0 = time.perf_counter()
-    report = _build.build()
-    cuda_s = time.perf_counter() - t0
+    def timed(fn):
+        t0 = time.perf_counter()
+        r = fn()
+        return r, time.perf_counter() - t0
+
+    # both builds at once; build/ may hold a native core built with
+    # -march=native for another CPU, so it is always rebuilt
+    with ThreadPoolExecutor(2) as pool:
+        core = pool.submit(timed, lambda: native.build(force=True))
+        report, cuda_s = timed(_build.build)
+        _, native_s = core.result()
     _build.library()
+    check(native.available(), "the native core does not load")
     say("phase0", device=json.dumps(name), torch=torch.__version__,
         cuda=torch.version.cuda, native_build_s=f"{native_s:.1f}",
         cuda_build_s=f"{cuda_s:.1f}")
@@ -159,7 +202,8 @@ def phase0():
 def _mixed_blocks():
     """Text, zeros, structured binary, random, and a two-window block, with
     the level each is compressed at."""
-    from turbosqueeze_tpu.utils.corpus import synthetic_binary, synthetic_text
+    from turbosqueeze_tpu_torch.utils.corpus import (synthetic_binary,
+                                                     synthetic_text)
 
     base = synthetic_text(64 * 1024, seed=11)
     two_win = (base * ((3 * MiB) // len(base) + 1))[:2 * MiB + 200_000]
@@ -172,7 +216,7 @@ def _mixed_blocks():
 def phase1(errs):
     """Gang kernel vs its plain version, on the card's and the host's
     copies of the same planes."""
-    from turbosqueeze_tpu.runtime import native
+    from turbosqueeze_tpu_torch.runtime import native
     from turbosqueeze_tpu_torch.kernels import decode_gang as DG
     from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
 
@@ -212,9 +256,9 @@ def phase1(errs):
 
 def phase2(errs):
     """Stream kernel vs its plain version, ext on/off and a dictionary."""
-    from turbosqueeze_tpu.format import FormatError, iter_container
-    from turbosqueeze_tpu.runtime import native
-    from turbosqueeze_tpu.utils.corpus import synthetic_text
+    from turbosqueeze_tpu_torch.format import FormatError, iter_container
+    from turbosqueeze_tpu_torch.runtime import native
+    from turbosqueeze_tpu_torch.utils.corpus import synthetic_text
     from turbosqueeze_tpu_torch.kernels import decode_stream as DS
     from turbosqueeze_tpu_torch.kernels import decode_tokens as DK
     from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
@@ -277,8 +321,9 @@ def phase2(errs):
 def _e2e_input(n_blocks: int) -> bytes:
     """Full 4 MiB blocks cycling over the in-repo real files and the
     synthetic classes, each block cut from its class at its own offset."""
-    from turbosqueeze_tpu.utils.corpus import (real_files, synthetic_binary,
-                                               synthetic_text)
+    from turbosqueeze_tpu_torch.utils.corpus import (real_files,
+                                                     synthetic_binary,
+                                                     synthetic_text)
 
     blk = 4 * MiB
     pool = list(real_files().values()) + [
@@ -302,6 +347,7 @@ def _e2e_input(n_blocks: int) -> bytes:
 def _main_path(counts, fn):
     """Runs ``fn`` as the main path: every kernel count is 0 just before,
     and the counts are read and added up just after."""
+    from turbosqueeze_tpu_torch.kernels import decode_bulk as DB
     from turbosqueeze_tpu_torch.kernels import decode_gang as DG
     from turbosqueeze_tpu_torch.kernels import decode_stream as DS
     from turbosqueeze_tpu_torch.kernels import decode_tokens as DK
@@ -309,19 +355,22 @@ def _main_path(counts, fn):
 
     DG.launches = DS.launches = DK.launches = 0
     EE.launches.update(dict.fromkeys(EE.launches, 0))
+    DB.launches.update(dict.fromkeys(DB.launches, 0))
     r = fn()
     counts["decode_gang"] += DG.launches
     counts["decode_stream"] += DS.launches
     counts["decode_tokens"] += DK.launches
     for m, n in EE.launches.items():
         counts[f"encode_emit_{m}"] += n
+    for abi, n in DB.launches.items():
+        counts[f"decode_{abi}"] += n
     return r
 
 
 def phase3(errs, counts, timing):
     import turbosqueeze_tpu_torch as tsq
-    from turbosqueeze_tpu.format import scan_block_table
-    from turbosqueeze_tpu.runtime import native
+    from turbosqueeze_tpu_torch.format import scan_block_table
+    from turbosqueeze_tpu_torch.runtime import native
     from turbosqueeze_tpu_torch.kernels import decode_gang as DG
     from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
     from turbosqueeze_tpu_torch.parallel import pipeline
@@ -383,7 +432,8 @@ def phase3(errs, counts, timing):
                 return DG.decode_gang_batch(*planes, nblk=1, slot_recs=srecs)
 
             timing["decode_gang"] = (_cuda_ms(lambda: gang(blk), 5),
-                                     _host_ms(lambda: gang(blk_h), 1))
+                                     _host_ms(lambda: gang(blk_h), 1),
+                                     _nbytes(*blk, gang(blk)))
             _compare(errs, "decode_gang", _bytes_of(gang(blk), 0, 0, size),
                      _bytes_of(gang(blk_h), 0, 0, size), data[:size],
                      "gang full block")
@@ -402,8 +452,8 @@ def phase3(errs, counts, timing):
 
 
 def phase4(errs, counts, timing):
-    from turbosqueeze_tpu.format import scan_block_table
-    from turbosqueeze_tpu.runtime import native
+    from turbosqueeze_tpu_torch.format import scan_block_table
+    from turbosqueeze_tpu_torch.runtime import native
     from turbosqueeze_tpu_torch.kernels import decode_stream as DS
     from turbosqueeze_tpu_torch.kernels import decode_tokens as DK
     from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
@@ -433,7 +483,8 @@ def phase4(errs, counts, timing):
     blk_h = planes_to_torch(*planes, device="cpu")
     timing["decode_stream"] = (
         _cuda_ms(lambda: DS.decode_stream_batch(*blk), 3),
-        _host_ms(lambda: DS.decode_stream_batch(*blk_h), 1))
+        _host_ms(lambda: DS.decode_stream_batch(*blk_h), 1),
+        _nbytes(*blk, DS.decode_stream_batch(*blk)))
     _compare(errs, "decode_stream",
              _bytes_of(DS.decode_stream_batch(*blk), 0, 0, size),
              _bytes_of(DS.decode_stream_batch(*blk_h), 0, 0, size),
@@ -475,7 +526,7 @@ def _emit_compare(errs, planes, ext, matcher, what):
 def _emit_planes(blocks, dictionary=b"", cand=True):
     """Input, candidate (phase A on the card, held against the native
     core's hash chain) and meta planes of a batch, on the card."""
-    from turbosqueeze_tpu.runtime import native
+    from turbosqueeze_tpu_torch.runtime import native
     from turbosqueeze_tpu_torch.kernels import encode_emit as EE
     from turbosqueeze_tpu_torch.kernels import encode_xla as EX
 
@@ -502,9 +553,10 @@ def _emit_planes(blocks, dictionary=b"", cand=True):
 def phase5(errs, timing):
     """Emit kernel vs its plain version and the native core: both matchers,
     ext on and off, mixed blocks, a dictionary base, full blocks."""
-    from turbosqueeze_tpu.format import iter_container
-    from turbosqueeze_tpu.runtime import native
-    from turbosqueeze_tpu.utils.corpus import synthetic_binary, synthetic_text
+    from turbosqueeze_tpu_torch.format import iter_container
+    from turbosqueeze_tpu_torch.runtime import native
+    from turbosqueeze_tpu_torch.utils.corpus import (synthetic_binary,
+                                                     synthetic_text)
     from turbosqueeze_tpu_torch.kernels import encode_emit as EE
     from turbosqueeze_tpu_torch.kernels import encode_xla as EX
 
@@ -555,7 +607,8 @@ def phase5(errs, timing):
         ms = _cuda_ms(lambda: EE.emit_batch(*dev, matcher=matcher), 3)
         got, plain_ms = _emit_compare(errs, planes, True, matcher,
                                       f"{matcher} full block")
-        timing[f"encode_emit_{matcher}"] = (ms, plain_ms)
+        timing[f"encode_emit_{matcher}"] = (
+            ms, plain_ms, _nbytes(*dev, *EE.emit_batch(*dev, matcher=matcher)))
         check(got[0] == want(full, True, matcher),
               f"{matcher} full block: kernel != native")
         say("phase5", matcher=matcher, full_block=True, exact=True,
@@ -568,8 +621,8 @@ def phase6(counts):
     """Compress end to end through the public API, and its layers timed
     apart on the same windows."""
     import turbosqueeze_tpu_torch as tsq
-    from turbosqueeze_tpu.format import split_blocks
-    from turbosqueeze_tpu.runtime import native
+    from turbosqueeze_tpu_torch.format import split_blocks
+    from turbosqueeze_tpu_torch.runtime import native
     from turbosqueeze_tpu_torch.parallel import pipeline
 
     data = _e2e_input(64)
@@ -647,7 +700,7 @@ def phase6(counts):
 
     # a preset dictionary: concat(dict, block) through phase A and the
     # cand matcher (level 1), or the host's lazy parse (level 2)
-    from turbosqueeze_tpu.utils.corpus import synthetic_text
+    from turbosqueeze_tpu_torch.utils.corpus import synthetic_text
 
     d = synthetic_text(33_000, seed=113)
     part = data[:16 * 4 * MiB]
@@ -693,9 +746,9 @@ def phase7(errs, counts, timing, data, streams):
     and ``decompress_to_words`` on phase 3's containers, and a dictionary
     container through every route."""
     import turbosqueeze_tpu_torch as tsq
-    from turbosqueeze_tpu.format import iter_container, scan_block_table
-    from turbosqueeze_tpu.runtime import native
-    from turbosqueeze_tpu.utils.corpus import synthetic_text
+    from turbosqueeze_tpu_torch.format import iter_container, scan_block_table
+    from turbosqueeze_tpu_torch.runtime import native
+    from turbosqueeze_tpu_torch.utils.corpus import synthetic_text
     from turbosqueeze_tpu_torch import block
     from turbosqueeze_tpu_torch.kernels import decode_gang as DG
     from turbosqueeze_tpu_torch.kernels import decode_tokens as DK
@@ -750,7 +803,8 @@ def phase7(errs, counts, timing, data, streams):
     timing["decode_tokens"] = (
         _cuda_ms(lambda: DK.decode_tokens_batch(*dev, out_rows=out_rows), 5),
         _host_ms(lambda: DK.decode_tokens_batch(*planes, out_rows=out_rows),
-                 1))
+                 1),
+        _nbytes(*dev, DK.decode_tokens_batch(*dev, out_rows=out_rows)))
     say("phase7", full_block=True, tokens=len(parsed[0][1]),
         kernel_ms=f"{timing['decode_tokens'][0]:.4f}",
         plain_ms=f"{timing['decode_tokens'][1]:.1f}")
@@ -873,6 +927,235 @@ def phase7(errs, counts, timing, data, streams):
             launches=",".join(f"{k}:{launched[k]}" for k in kernels))
 
 
+def _bulk_decode(abi, nblk, planes, **kw):
+    """The bulk kernel (or its plain version) through ``abi``'s wrapper."""
+    from turbosqueeze_tpu_torch.kernels import decode_bulk as DB
+
+    if abi == "bulk":
+        return DB.decode_bulk_batch(*planes, **kw)
+    if abi == "bulk2":
+        return DB.decode_bulk2_batch(*planes, **kw)
+    return DB.decode_bulkn_batch(*planes, nblk=nblk, **kw)
+
+
+def _bulk_compare(errs, abi, nblk, planes, datas, what, base=0, **kw):
+    """The bulk kernel on the card's copy of numpy ``planes`` against its
+    plain version on the host's: each block's bytes and every word."""
+    from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
+
+    got = _bulk_decode(abi, nblk, planes_to_torch(*planes, device="cuda"),
+                       **kw)
+    torch.cuda.synchronize()
+    ref = _bulk_decode(abi, nblk, planes_to_torch(*planes, device="cpu"),
+                       **kw)
+    for k, d in enumerate(datas):
+        _compare(errs, f"decode_{abi}", _bytes_of(got, k, base, len(d)),
+                 _bytes_of(ref, k, base, len(d)), d, f"{what} block {k}")
+    check(torch.equal(got.cpu(), ref), f"{what}: kernel != plain past the "
+          "blocks' bytes")
+
+
+def _garbage_bulk(rng, abi, nblk):
+    """Two groups of entries with random rows, counts and records (sources
+    anywhere, some past their planes), random words after them, and meta
+    with random window counts and ends past the stream."""
+    from turbosqueeze_tpu_torch.kernels import decode_bulk as DB
+
+    meta_words, nwin_base, end_base = DB._ABIS[abi]
+    rec = np.zeros((2, 24 * 128), np.uint32)
+    for g in range(2):
+        p = 0
+        while p < rec.shape[1] - 40:
+            n = int(rng.integers(0, 12))
+            n_u = int(rng.integers(0, n + 1))
+            r = rng.integers(0, 2**32, 2 * n, dtype=np.uint32)
+            r[1::2] &= rng.choice(np.array(
+                [0x800000FF, 0x203FFFFF, 0xFFFFFFFF], np.uint32), n)
+            rec[g, p:p + 2] = rng.integers(0, 4200), n_u << 16 | (n - n_u)
+            rec[g, p + 2:p + 2 + 2 * n] = r
+            p += 2 + 2 * n
+        rec[g, -5:] = rng.integers(0, 2**32, 5, dtype=np.uint32)
+    meta = rng.integers(0, 2**32, (2, meta_words), dtype=np.uint32)
+    meta[:, nwin_base:nwin_base + nblk] = rng.integers(0, 5, (2, nblk))
+    meta[:, end_base:end_base + 3] = np.sort(
+        rng.integers(0, rec.shape[1] + 600, (2, 3)), axis=1)
+    lit = rng.integers(-2**31, 2**31, (2 * nblk, 16, 128), dtype=np.int32)
+    return lit, rec.reshape(2, 24, 128), meta
+
+
+_BULK_ABIS = (("bulk", 1), ("bulk2", 2), ("bulkn", 3), ("bulkn", 4))
+
+
+def phase8(errs, counts, timing, data, streams):
+    """The bulk record-stream decode: the kernel through its three wrappers
+    against its plain version, and the three bulk routes end to end."""
+    from turbosqueeze_tpu_torch.format import iter_container, scan_block_table
+    from turbosqueeze_tpu_torch.kernels import decode_bulk as DB
+    from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
+    from turbosqueeze_tpu_torch.parallel import pipeline
+    from turbosqueeze_tpu_torch.runtime import native
+    from turbosqueeze_tpu_torch.utils.corpus import synthetic_text
+
+    datas, levels = _mixed_blocks()
+    exts = (True, False, True, False, True)
+    preps = DB.resolve_blocks([(native.compress(x, e, level=lv)[19:], e)
+                               for x, lv, e in zip(datas, levels, exts)])
+    check(preps is not None, "the resolver declined a mixed block")
+    for abi, nblk in _BULK_ABIS:
+        _bulk_compare(errs, abi, nblk, DB.pack_batch(preps, abi, nblk)[:3],
+                      datas, f"{abi} nblk={nblk}")
+        say("phase8", abi=abi, nblk=nblk, blocks=len(datas),
+            bytes=sum(map(len, datas)), exact=True)
+
+    # a full block and a 33 KB dictionary span three 2 MiB windows
+    d = synthetic_text(33_000, seed=113)
+    full = data[4 * MiB:8 * MiB]
+    (_, payload, ext), = iter_container(native.compress_dict(full, d, True))
+    dprep = DB.resolve_blocks([(payload, ext)], dictionary=d)
+    check(dprep[0][2][1] == 3, f"dictionary: {dprep[0][2][1]} windows, not 3")
+    kw = {"out_rows": 3 * DB.WIN_ROWS, "max_win": 3}
+    for abi, nblk in _BULK_ABIS[:3]:
+        _bulk_compare(errs, abi, nblk, DB.pack_batch(dprep, abi, nblk)[:3],
+                      [full], f"{abi} dictionary", base=len(d), **kw)
+    say("phase8", dictionary=len(d), windows=3, exact=True)
+
+    # garbage planes: the kernel stays inside them and equals its plain
+    # version word for word
+    rng = np.random.default_rng(10)
+    for abi, nblk in _BULK_ABIS[:3]:
+        planes = _garbage_bulk(rng, abi, nblk)
+        got = _bulk_decode(abi, nblk, planes_to_torch(*planes, device="cuda"),
+                           **kw)
+        ref = _bulk_decode(abi, nblk, planes_to_torch(*planes, device="cpu"),
+                           **kw)
+        check(torch.equal(got.cpu(), ref), f"garbage {abi}: kernel != plain")
+    say("phase8", garbage_planes="no fault", exact=True)
+
+    # one full level-1 text block per ABI (padded to a whole group with
+    # empty blocks), at the main path's plane shapes
+    stream = streams[1]
+    _, table = scan_block_table(stream)
+    off, psz, ext = table[1]
+    fprep = DB.resolve_blocks([(stream[off:off + psz], ext)])
+    size = int(fprep[0][2][0])
+    for abi, nblk in (("bulk", 1), ("bulk2", 2), ("bulkn", 4)):
+        planes = DB.pack_batch(fprep, abi, nblk)[:3]
+        dev = planes_to_torch(*planes, device="cuda")
+        host = planes_to_torch(*planes, device="cpu")
+        ms = _cuda_ms(lambda: _bulk_decode(abi, nblk, dev), 5)
+        t0 = time.perf_counter()
+        ref = _bulk_decode(abi, nblk, host)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = _bulk_decode(abi, nblk, dev)
+        _compare(errs, f"decode_{abi}", _bytes_of(got, 0, 0, size),
+                 _bytes_of(ref, 0, 0, size), data[4 * MiB:4 * MiB + size],
+                 f"{abi} full block")
+        moved = _nbytes(*dev, got)
+        timing[f"decode_{abi}"] = (ms, plain_ms, moved)
+        say("phase8", abi=abi, nblk=nblk, full_block=True, exact=True,
+            kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.1f}",
+            lit_bytes=_nbytes(dev[0]), rec_bytes=_nbytes(dev[1]),
+            meta_bytes=_nbytes(dev[2]), out_bytes=_nbytes(got),
+            record_words=len(fprep[0][1]),
+            bound_ms=f"{moved / HBM_BYTES_PER_MS:.6f}")
+        del dev, host, got, ref
+
+    # the three bulk routes end to end on the 256 MiB containers
+    mb = len(data) / 1e6
+    for level in (0, 1, 2):
+        stream = streams[level]
+        want = native.decompress(stream)
+        check(want == data, f"level {level}: native decode != input")
+        for impl in ("bulk", "bulk2", "bulkn"):
+            names = ("decode_bulk", "decode_bulk2", "decode_bulkn")
+            before = sum(counts[k] for k in names)
+            e2e = []
+            for _ in range(4):  # a cold run, then three warm ones
+                t0 = time.perf_counter()
+                out = _main_path(counts, lambda: pipeline.decompress(
+                    stream, impl=impl))
+                e2e.append((time.perf_counter() - t0) * 1e3)
+                check(out == want, f"{impl} level {level}: != native decode")
+            check(sum(counts[k] for k in names) > before,
+                  f"{impl} level {level}: the bulk kernel never launched")
+            say("phase8", impl=impl, level=level, input_mb=f"{mb:.1f}",
+                exact=True,
+                decode_MBps=f"{mb / statistics.median(e2e[1:]) * 1e3:.1f}",
+                e2e_ms="/".join(f"{t:.1f}" for t in e2e[1:]),
+                cold_ms=f"{e2e[0]:.1f}")
+            if level == 1:
+                _bulk_layers(stream, impl, mb)
+
+    # phase 7's dictionary container through the three routes
+    part = data[:16 * 4 * MiB]
+    stream = native.compress_dict(part, d, True)
+    want = native.decompress_dict(stream, d)
+    check(want == part, "native dictionary decode != input")
+    for impl in ("bulk", "bulk2", "bulkn"):
+        before = dict(counts)
+        t0 = time.perf_counter()
+        out = _main_path(counts, lambda: pipeline.decompress(
+            stream, impl=impl, dictionary=d))
+        ms = (time.perf_counter() - t0) * 1e3
+        check(out == want, f"dictionary {impl}: != native.decompress_dict")
+        launched = {k: counts[k] - before[k] for k in counts if "bulk" in k}
+        check(sum(launched.values()) > 0, f"dictionary {impl}: no launch")
+        say("phase8", dictionary=len(d), impl=impl,
+            input_mb=f"{len(part) / 1e6:.1f}", exact=True,
+            decode_MBps=f"{len(part) / 1e6 / ms * 1e3:.1f}",
+            launches=",".join(f"{k}:{n}" for k, n in launched.items() if n))
+
+
+def _bulk_layers(stream, impl, mb):
+    """One bulk route's layers on the same windows as its decode: host
+    resolve, merge and packing, upload, kernels and download, apart."""
+    from turbosqueeze_tpu_torch.format import scan_block_table
+    from turbosqueeze_tpu_torch.kernels import decode_bulk as DB
+    from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
+    from turbosqueeze_tpu_torch.parallel import pipeline
+
+    _, table = scan_block_table(stream)
+    wins = [table[lo:lo + pipeline.WINDOW_BLOCKS]
+            for lo in range(0, len(table), pipeline.WINDOW_BLOCKS)]
+    with ThreadPoolExecutor() as pool:
+        cpu0, t0 = time.process_time(), time.perf_counter()
+        preps = [DB.resolve_blocks([(stream[o:o + n], e) for o, n, e in w],
+                                   pool.map) for w in wins]
+        resolve_s, resolve_cpu = (time.perf_counter() - t0,
+                                  time.process_time() - cpu0)
+        abis = [pipeline.bulk_abi(impl, p) for p in preps]
+        cpu0, t0 = time.process_time(), time.perf_counter()
+        planes = [DB.pack_batch(p, abi, nblk, pool.map)[:3]
+                  for p, (abi, nblk) in zip(preps, abis)]
+        merge_s, merge_cpu = (time.perf_counter() - t0,
+                              time.process_time() - cpu0)
+    del preps
+    t0 = time.perf_counter()
+    dev = [planes_to_torch(*p, device="cuda") for p in planes]
+    torch.cuda.synchronize()
+    upload_ms = (time.perf_counter() - t0) * 1e3
+
+    def kernels():
+        return [_bulk_decode(abi, nblk, d) for d, (abi, nblk)
+                in zip(dev, abis)]
+
+    kernel_ms = _cuda_ms(kernels, 3)
+    outs = kernels()
+    host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+            for o in outs]
+    download_ms = _cuda_ms(lambda: [h.copy_(o, non_blocking=True)
+                                    for h, o in zip(host, outs)], 3)
+    say("phase8", impl=impl, level=1, windows=len(wins),
+        groups="/".join(f"{a}x{n}" for a, n in abis),
+        kernel_only_MBps=f"{mb / kernel_ms * 1e3:.1f}",
+        kernel_ms=f"{kernel_ms:.2f}", resolve_s=f"{resolve_s:.3f}",
+        resolve_cpu_s=f"{resolve_cpu:.3f}", merge_pack_s=f"{merge_s:.3f}",
+        merge_pack_cpu_s=f"{merge_cpu:.3f}", upload_ms=f"{upload_ms:.1f}",
+        download_ms=f"{download_ms:.1f}",
+        rec_bytes=sum(_nbytes(d[1]) for d in dev),
+        lit_bytes=sum(_nbytes(d[0]) for d in dev))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
@@ -894,15 +1177,24 @@ def main() -> int:
     phase5(errs, timing)
     phase6(counts)
     phase7(errs, counts, timing, data, streams)
+    phase8(errs, counts, timing, data, streams)
     check(all(counts.values()),
           f"a kernel of the main path never launched: {counts}")
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
     check(not loaded, f"the port loaded JAX: {loaded[:5]}")
+    # no single PyTorch call decodes an LZ stream or emits its tokens, so
+    # no kernel has a library yardstick; each one's work is bound by the
+    # bytes it reads and writes, far below the card's operation rates
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[k], "max_abs_err": errs[k],
                 "ms": round(timing[k][0], 4),
-                "plain_ms": round(timing[k][1], 1)}
+                "plain_ms": round(timing[k][1], 1),
+                "bound_ms": round(timing[k][2] / HBM_BYTES_PER_MS, 6),
+                "bound_by": "bytes", "library_ms": None}
                for k, (src, rep) in KERNELS.items()]
+    for k, n in TO_PORT_BYTES.items():
+        say("to_port", kernel=k, full_block_bytes=n,
+            bound_ms=f"{n / HBM_BYTES_PER_MS:.6f}")
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ must be byte-identical to the native core's and to the JAX pipeline's, and
 decode back through the port. Also the API's repaired routes:
 ``dictionary=`` on the host backends and ``progress=``."""
 
-import subprocess
+import sys
 import time
+from pathlib import Path
 
 import jax
 import pytest
@@ -19,16 +20,14 @@ from turbosqueeze_tpu_torch.parallel import pipeline
 
 import turbosqueeze_tpu_torch as tsq
 
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from test_torch_host_copies import jax_core, port_core  # noqa: E402
+
 
 @pytest.fixture(scope="module", autouse=True)
 def native():
-    from turbosqueeze_tpu.runtime import native
-
-    if not native.available():
-        subprocess.run(["make", "-C", "csrc"], check=True)
-        native._SEARCHED = False
-    assert native.available()
-    return native
+    jax_core()  # the JAX pipeline's reference runs on it
+    return port_core()
 
 
 @pytest.fixture(scope="module")
@@ -115,8 +114,11 @@ def test_cuda_backend_without_gpu_raises(monkeypatch, data):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     for kwargs in ({}, {"level": 1}, {"level": 2},
                    {"dictionary": b"abcd" * 100}):
+        for backend in ("cuda", "auto"):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                tsq.compress(data, backend=backend, **kwargs)
         with pytest.raises(RuntimeError, match="CUDA"):
-            tsq.compress(data, backend="cuda", **kwargs)
+            tsq.compress(data, **kwargs)  # the default runs on the card
     with pytest.raises(RuntimeError, match="CUDA"):
         pipeline.compress(b"", device="cuda:0")
 
@@ -156,8 +158,10 @@ def test_api_dictionary_on_host_backends(native):
     assert stream == native.compress_dict(data, d, True, level=1)
     assert tsq.compress(data, backend="cuda", device="cpu", dictionary=d,
                         level=0) == stream
-    for backend in ("auto", "native", "oracle"):
+    for backend in ("native", "oracle"):
         assert tsq.decompress(stream, backend=backend, dictionary=d) == data
+    assert tsq.decompress(stream, backend="auto", device="cpu",
+                          dictionary=d) == data  # auto is the card's route
     with pytest.raises(NotImplementedError, match="native or cuda"):
         tsq.compress(data, backend="oracle", dictionary=d)
     # and the cuda decode to the device pipeline's dictionary routes
@@ -167,9 +171,9 @@ def test_api_dictionary_on_host_backends(native):
 
 @pytest.mark.parametrize("route", ["compress", "decompress"])
 def test_first_native_use_in_the_pool(native, monkeypatch, route):
-    """The native core loads on first use, and its loader is not safe to
-    enter from several threads at once: a pipeline whose first native call
-    runs in its thread pool must load the core beforehand."""
+    """The native core loads on first use, under a lock: a pipeline whose
+    first native call runs in its thread pool gets the core in every
+    thread."""
     data = bytes(3 << 22) + synthetic_text(1_000, seed=89)
     stream = native.compress(data, True, level=2)
     real_cdll = native.ctypes.CDLL
@@ -179,8 +183,7 @@ def test_first_native_use_in_the_pool(native, monkeypatch, route):
         return real_cdll(*a, **k)
 
     monkeypatch.setattr(native.ctypes, "CDLL", slow_cdll)
-    monkeypatch.setattr(native, "_SEARCHED", False)
-    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "_lib", None)
     if route == "compress":
         assert pipeline.compress(data, True, level=2, device="cpu") == stream
     else:

@@ -7,26 +7,25 @@ not needed there):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
-import subprocess
 from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from turbosqueeze_tpu.format import iter_container
-from turbosqueeze_tpu.utils.corpus import synthetic_binary, synthetic_text
+from turbosqueeze_tpu_torch.format import iter_container
+from turbosqueeze_tpu_torch.kernels import decode_bulk as PB
 from turbosqueeze_tpu_torch.kernels import decode_gang as PG
 from turbosqueeze_tpu_torch.kernels import decode_stream as PS
 from turbosqueeze_tpu_torch.kernels import decode_tokens as PT
 from turbosqueeze_tpu_torch.kernels import encode_emit as PE
 from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
 from turbosqueeze_tpu_torch.parallel import pipeline
+from turbosqueeze_tpu_torch.utils.corpus import (synthetic_binary,
+                                                 synthetic_text)
 
 pytestmark = pytest.mark.cuda
 
-REPO = Path(__file__).resolve().parents[1]
 _MIXED = ((lambda: synthetic_text(90_000, seed=41), 0),
           (lambda: bytes(40_000), 1),
           (lambda: synthetic_binary(60_000, seed=43), 2),
@@ -37,12 +36,10 @@ _MIXED = ((lambda: synthetic_text(90_000, seed=41), 0),
 def native():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
-    from turbosqueeze_tpu.runtime import native
+    from turbosqueeze_tpu_torch.runtime import native
 
     # build/ may hold a core built with -march=native for another CPU
-    subprocess.run(["make", "-C", str(REPO / "csrc"), "-B"], check=True,
-                   capture_output=True)
-    native._SEARCHED = False
+    native.build(force=True)
     assert native.available()
     return native
 
@@ -302,3 +299,118 @@ def test_decompress_to_words_on_the_card(native, impl):
     assert b"".join(_words_bytes(words, b, 0, n)
                     for b, n in enumerate(sizes)) == data
     assert (PT.launches == 2) == (impl == "pallas")
+
+
+_BULK = [("bulk", 1), ("bulk2", 2), ("bulkn", 1), ("bulkn", 2), ("bulkn", 3),
+         ("bulkn", 4)]
+
+
+def _bulk_decode(abi, nblk, planes, device, **kw):
+    t = planes_to_torch(*planes, device=device)
+    if abi == "bulk":
+        return PB.decode_bulk_batch(*t, **kw)
+    if abi == "bulk2":
+        return PB.decode_bulk2_batch(*t, **kw)
+    return PB.decode_bulkn_batch(*t, nblk=nblk, **kw)
+
+
+@pytest.mark.parametrize("abi, nblk", _BULK)
+def test_bulk_kernel_matches_plain(native, abi, nblk):
+    """Each stream ABI on mixed classes and levels, ext on and off, and a
+    block of two windows whose matches reach across the window edge: the
+    kernel equals its plain version and the input; groups are padded with
+    empty blocks."""
+    base = synthetic_text(64 * 1024, seed=11)
+    two_win = (base * ((3 << 20) // len(base) + 1))[:(1 << 21) + 200_000]
+    datas = [make() for make, _ in _MIXED] + [two_win]
+    levels = [lv for _, lv in _MIXED] + [1]
+    exts = [True, False, True, False, True]
+    pe = [(native.compress(d, e, level=lv)[19:], e)
+          for d, lv, e in zip(datas, levels, exts)]
+    planes = PB.pack_batch(PB.resolve_blocks(pe), abi, nblk)
+    before = PB.launches[abi]
+    got = _bulk_decode(abi, nblk, planes[:3], "cuda")
+    torch.cuda.synchronize()
+    assert PB.launches[abi] == before + 1
+    ref = _bulk_decode(abi, nblk, planes[:3], "cpu")
+    assert got.device.type == "cuda" and got.shape == ref.shape
+    for k, d in enumerate(datas):
+        assert _words_bytes(got, k, 0, len(d)) == d, f"block {k}"
+        assert _words_bytes(ref, k, 0, len(d)) == d, f"plain block {k}"
+    assert torch.equal(got.cpu(), ref)  # zero past every block's bytes
+
+
+def test_bulk_kernel_three_windows_matches_plain(native):
+    """A full 4 MiB block with a 33 KB dictionary spans three 2 MiB
+    windows of the dict-extended space, through each ABI."""
+    d = synthetic_text(33_000, seed=113)
+    data = synthetic_text(1 << 22, seed=114)
+    (_, payload, ext), = iter_container(native.compress_dict(data, d, True))
+    preps = PB.resolve_blocks([(payload, ext)], dictionary=d)
+    assert preps[0][2][1] == 3
+    kw = dict(out_rows=3 * PB.WIN_ROWS, max_win=3)
+    for abi, nblk in (("bulk", 1), ("bulk2", 2), ("bulkn", 3)):
+        planes = PB.pack_batch(preps, abi, nblk)[:3]
+        got = _bulk_decode(abi, nblk, planes, "cuda", **kw)
+        ref = _bulk_decode(abi, nblk, planes, "cpu", **kw)
+        assert _words_bytes(got, 0, len(d), len(data)) == data, abi
+        assert torch.equal(got.cpu(), ref), abi
+
+
+def _garbage_bulk(rng, n_groups, nblk, meta_words, nwin_base, end_base):
+    """Streams of entries with random rows, counts and records (sources
+    anywhere, some past their planes), random words between them, and
+    meta with random window counts and ends past the stream."""
+    rec_rows = 24
+    rec = np.zeros((n_groups, rec_rows * 128), np.uint32)
+    for g in range(n_groups):
+        p = 0
+        while p < rec.shape[1] - 40:
+            n = int(rng.integers(0, 12))
+            n_u = int(rng.integers(0, n + 1))
+            rec[g, p] = rng.integers(0, 4200)
+            rec[g, p + 1] = n_u << 16 | (n - n_u)
+            r = rng.integers(0, 2**32, 2 * n, dtype=np.uint32)
+            r[1::2] &= rng.choice(np.array(
+                [0x800000FF, 0x203FFFFF, 0xFFFFFFFF], np.uint32), n)
+            rec[g, p + 2:p + 2 + 2 * n] = r
+            p += 2 + 2 * n
+        rec[g, -5:] = rng.integers(0, 2**32, 5, dtype=np.uint32)
+    meta = rng.integers(0, 2**32, (n_groups, meta_words), dtype=np.uint32)
+    meta[:, nwin_base:nwin_base + nblk] = rng.integers(0, 5, (n_groups, nblk))
+    meta[:, end_base:end_base + 3] = np.sort(
+        rng.integers(0, rec.shape[1] + 600, (n_groups, 3)), axis=1)
+    lit = rng.integers(-2**31, 2**31, (n_groups * nblk, 16, 128),
+                       dtype=np.int32)
+    return lit, rec.reshape(n_groups, rec_rows, 128), meta
+
+
+@pytest.mark.parametrize("abi, nblk", [("bulk", 1), ("bulk2", 2),
+                                       ("bulkn", 3)])
+def test_bulk_kernel_garbage_planes_match_plain(native, abi, nblk):
+    """Garbage streams and meta: the kernel stays inside its planes and
+    gives its plain version's words exactly, in three windows."""
+    rng = np.random.default_rng(41 + nblk)
+    meta_words, nwin_base, end_base = PB._ABIS[abi]
+    planes = _garbage_bulk(rng, 2, nblk, meta_words, nwin_base, end_base)
+    kw = dict(out_rows=3 * PB.WIN_ROWS, max_win=3)
+    got = _bulk_decode(abi, nblk, planes, "cuda", **kw)
+    ref = _bulk_decode(abi, nblk, planes, "cpu", **kw)
+    assert torch.equal(got.cpu(), ref)
+    assert ref.any()
+
+
+@pytest.mark.parametrize("impl", ["bulk", "bulk2", "bulkn"])
+def test_bulk_routes_match_native(native, impl):
+    """Each bulk route on a container of two full blocks and a short one,
+    with and without a dictionary (the full blocks take three windows)."""
+    d = synthetic_text(33_000, seed=113)
+    data = synthetic_text(2 * (1 << 22) + 70_000, seed=117)
+    for dictionary in (None, d):
+        stream = (native.compress_dict(data, d, True) if dictionary
+                  else native.compress(data, True, level=1))
+        PB.launches.update(dict.fromkeys(PB.launches, 0))
+        got = pipeline.decompress(stream, device="cuda", impl=impl,
+                                  dictionary=dictionary)
+        assert got == data
+        assert sum(PB.launches.values()) == 1

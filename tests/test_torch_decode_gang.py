@@ -3,7 +3,8 @@ decode_gang.py) against the JAX package's Pallas kernel, run interpreted on
 the CPU: the same numpy planes from prep_gang go through both, and every
 block's first ``size`` bytes must match exactly (tolerance zero)."""
 
-import subprocess
+import sys
+from pathlib import Path
 
 import jax  # noqa: F401  (the JAX package is the reference)
 import numpy as np
@@ -15,15 +16,14 @@ from turbosqueeze_tpu.utils.corpus import synthetic_binary, synthetic_text
 from turbosqueeze_tpu_torch.kernels import decode_gang as PG
 from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from test_torch_host_copies import jax_core, port_core  # noqa: E402
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _native():
-    from turbosqueeze_tpu.runtime import native
-
-    if not native.available():
-        subprocess.run(["make", "-C", "csrc"], check=True)
-        native._SEARCHED = False
-    assert native.available()
+    jax_core()  # the JAX package's prep_gang runs on it
+    port_core()
 
 
 def _payloads(datas, levels):
@@ -102,7 +102,8 @@ def test_prep_gang_declines_like_reference(monkeypatch):
     from turbosqueeze_tpu.runtime import native
 
     pe = _payloads(_MIXED[0][:2], (0, 1))
-    monkeypatch.setattr(native, "bulk_prep",
-                        lambda payload, ext, dictionary=None: None)
+    for mod in (native, port_core()):
+        monkeypatch.setattr(mod, "bulk_prep",
+                            lambda payload, ext, dictionary=None: None)
     assert RG.prep_gang(pe, 1) is None
     assert PG.prep_gang(pe, 1) is None

@@ -3,7 +3,8 @@ decode_stream.py) against the JAX package's Pallas kernel, run interpreted
 on the CPU: the same payload words and meta go through both, and each
 block's decoded bytes must match exactly (tolerance zero)."""
 
-import subprocess
+import sys
+from pathlib import Path
 
 import jax  # noqa: F401  (the JAX package is the reference)
 import numpy as np
@@ -18,15 +19,14 @@ from turbosqueeze_tpu_torch.kernels import decode_stream as PS
 from turbosqueeze_tpu_torch.kernels import decode_tokens as PT
 from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from test_torch_host_copies import jax_core, port_core  # noqa: E402
+
 
 @pytest.fixture(scope="module", autouse=True)
 def _native():
-    from turbosqueeze_tpu.runtime import native
-
-    if not native.available():
-        subprocess.run(["make", "-C", "csrc"], check=True)
-        native._SEARCHED = False
-    assert native.available()
+    jax_core()  # the tests' containers come from it
+    port_core()
 
 
 def _rows_for(nbytes):

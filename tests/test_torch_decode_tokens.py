@@ -5,7 +5,8 @@ through both, and each block's decoded bytes must match exactly
 (tolerance zero). The host glue (pack_tokens, tokenize_with_dict,
 dict_prefix_tokens) must give the JAX package's arrays exactly."""
 
-import subprocess
+import sys
+from pathlib import Path
 
 import jax  # noqa: F401  (the JAX package is the reference)
 import numpy as np
@@ -20,16 +21,14 @@ from turbosqueeze_tpu_torch import block as PBL
 from turbosqueeze_tpu_torch.kernels import decode_tokens as PT
 from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from test_torch_host_copies import jax_core, port_core  # noqa: E402
+
 
 @pytest.fixture(scope="module", autouse=True)
 def native():
-    from turbosqueeze_tpu.runtime import native
-
-    if not native.available():
-        subprocess.run(["make", "-C", "csrc"], check=True)
-        native._SEARCHED = False
-    assert native.available()
-    return native
+    port_core()  # the port's block.py runs on it
+    return jax_core()
 
 
 def _rows_for(nbytes):

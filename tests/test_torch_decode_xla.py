@@ -3,6 +3,9 @@ decode_xla.py, torch ops) against the JAX package's XLA formulation on the
 CPU: the same numpy token and payload planes go through both, and the
 decoded byte planes must be equal, every byte (tolerance zero)."""
 
+import sys
+from pathlib import Path
+
 import jax  # noqa: F401  (the JAX package is the reference)
 import numpy as np
 import pytest
@@ -13,6 +16,9 @@ from turbosqueeze_tpu.format import iter_container
 from turbosqueeze_tpu.kernels import decode_xla as RX
 from turbosqueeze_tpu.utils.corpus import synthetic_binary, synthetic_text
 from turbosqueeze_tpu_torch.kernels import decode_xla as PX
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from test_torch_host_copies import jax_core  # noqa: E402
 
 N_OUT = 1 << 17  # small static shape keeps CPU tests fast
 
@@ -73,7 +79,7 @@ def test_mixed_ext_batch():
 def test_deep_chain_rle():
     """Long runs make match-of-match chains that only full-depth pointer
     doubling resolves."""
-    from turbosqueeze_tpu.runtime import native
+    native = jax_core()
 
     data = (b"ab" * 4096 + b"\x00" * 50_000 + b"xyz" * 9999)[:N_OUT]
     (_, payload, ext), = iter_container(native.compress(data, True, level=1))
@@ -83,7 +89,7 @@ def test_deep_chain_rle():
 def test_insufficient_rounds_same_garbage():
     """With rounds=0 deep chains stay unresolved: both give the same wrong
     bytes, bounded, with no exception."""
-    from turbosqueeze_tpu.runtime import native
+    native = jax_core()
 
     data = b"ab" * 30_000
     (_, payload, ext), = iter_container(native.compress(data, True, level=1))

@@ -4,18 +4,21 @@ api.py) on the CPU, where the kernels run their plain versions: every
 route's bytes are held against the input, ``native.decompress_dict`` /
 ``native.decompress`` and the JAX pipeline (interpret mode), exactly."""
 
-import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import numpy as np
 import pytest
 import torch
 
-from turbosqueeze_tpu.format import FormatError, scan_block_table
+from turbosqueeze_tpu.format import FormatError as RefFormatError
+from turbosqueeze_tpu.format import scan_block_table
 from turbosqueeze_tpu.kernels import decode_tokens as RT
 from turbosqueeze_tpu.parallel import mesh as ref_mesh
 from turbosqueeze_tpu.parallel import pipeline as ref_pipeline
 from turbosqueeze_tpu.utils.corpus import synthetic_binary, synthetic_text
+from turbosqueeze_tpu_torch.format import FormatError
 from turbosqueeze_tpu_torch.kernels import decode_gang as PG
 from turbosqueeze_tpu_torch.kernels import decode_stream as PS
 from turbosqueeze_tpu_torch.kernels import decode_tokens as PT
@@ -24,18 +27,16 @@ from turbosqueeze_tpu_torch.parallel import pipeline
 
 import turbosqueeze_tpu_torch as tsq
 
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from test_torch_host_copies import jax_core, port_core  # noqa: E402
+
 MiB = 1 << 20
 
 
 @pytest.fixture(scope="module", autouse=True)
 def native():
-    from turbosqueeze_tpu.runtime import native
-
-    if not native.available():
-        subprocess.run(["make", "-C", "csrc"], check=True)
-        native._SEARCHED = False
-    assert native.available()
-    return native
+    jax_core()  # the JAX pipeline's reference runs on it
+    return port_core()
 
 
 @pytest.fixture(scope="module")
@@ -156,7 +157,10 @@ def test_decompress_to_words_matches_jax(native, impl):
     ref = np.asarray(ref)
     assert words.dtype == torch.int32 and tuple(words.shape) == ref.shape
     assert tuple(words.shape) == (1, PT.OUT_ROWS, 128)
-    assert (sizes, hdr) == (rsizes, rhdr) == ([len(data)], hdr)
+    assert sizes == rsizes == [len(data)]
+    # the port's header is its own class, with the same fields
+    assert (hdr.n_blocks, hdr.total_size) == (rhdr.n_blocks,
+                                              rhdr.total_size)
     assert PT.words_to_bytes(words[0], len(data)) == data
     assert PT.words_to_bytes(words[0], len(data)) == \
         RT.words_to_bytes(ref[0], len(data))
@@ -193,15 +197,15 @@ def test_corrupt_containers_raise(native, impl):
     stomped = bytes(stream[:22]) + b"\xff" * (len(stream) - 22)
     with pytest.raises(FormatError):
         pipeline.decompress(stomped, device="cpu", impl=impl)
-    with pytest.raises(FormatError):
+    with pytest.raises(RefFormatError):
         _jax(stomped, impl=impl)
 
 
 def test_unported_and_unknown_routes(native, small, dictionary):
     _, stream = small
-    for impl in ("bulk", "bulk2", "bulkn"):
-        with pytest.raises(NotImplementedError, match="queue 2 #4"):
-            pipeline.decompress(stream, device="cpu", impl=impl)
+    for impl in ("bulk", "bulk2", "bulkn"):  # words stay with two routes
+        with pytest.raises(ValueError, match="impl"):
+            pipeline.decompress_to_words(stream, device="cpu", impl=impl)
     with pytest.raises(ValueError, match="impl"):
         pipeline.decompress(stream, device="cpu", impl="nonesuch")
     with pytest.raises(ValueError, match="impl"):

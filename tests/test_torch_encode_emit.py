@@ -21,17 +21,12 @@ from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_encode_emit import (  # noqa: E402
     _dead_size_slot_case, _window_edge_case)
+from test_torch_host_copies import port_core  # noqa: E402
 
 
 @pytest.fixture(scope="module")
 def native():
-    from turbosqueeze_tpu.runtime import native
-
-    if not native.available():
-        subprocess.run(["make", "-C", "csrc"], check=True)
-        native._SEARCHED = False
-    assert native.available()
-    return native
+    return port_core()
 
 
 def _planes(native, blocks, dictionary=b"", cand=True):

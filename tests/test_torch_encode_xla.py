@@ -3,7 +3,8 @@ against the JAX package's ``find_candidates`` and the native core's hash
 chain (``native.build_candidates``): the same numpy-seeded blocks go
 through all three, and the candidate arrays must be equal."""
 
-import subprocess
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,16 +15,13 @@ from turbosqueeze_tpu.kernels import encode_xla as RX
 from turbosqueeze_tpu.utils.corpus import synthetic_binary, synthetic_text
 from turbosqueeze_tpu_torch.kernels import encode_xla as PX
 
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from test_torch_host_copies import port_core  # noqa: E402
+
 
 @pytest.fixture(scope="module")
 def native():
-    from turbosqueeze_tpu.runtime import native
-
-    if not native.available():
-        subprocess.run(["make", "-C", "csrc"], check=True)
-        native._SEARCHED = False
-    assert native.available()
-    return native
+    return port_core()
 
 
 def _cases():

@@ -2,6 +2,7 @@
 re-declared constants and host glue equal the JAX package's, and its
 planes keep u32 bit patterns."""
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -29,44 +30,78 @@ REPO = Path(__file__).resolve().parents[1]
 _NO_JAX = """
 import sys
 
-class _NoJax:
+_BLOCKED = ("jax", "jaxlib", "turbosqueeze_tpu")
+
+class _Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in _BLOCKED:
             raise ImportError(f"{name} is blocked")
 
-for m in [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]:
+for m in [m for m in sys.modules if m.split(".")[0] in _BLOCKED]:
     del sys.modules[m]
-sys.meta_path.insert(0, _NoJax())
-import turbosqueeze_tpu_torch
+sys.meta_path.insert(0, _Block())
+import turbosqueeze_tpu_torch as tsq
 import turbosqueeze_tpu_torch.block
 import turbosqueeze_tpu_torch.kernels._build
+import turbosqueeze_tpu_torch.kernels.decode_bulk
 import turbosqueeze_tpu_torch.kernels.decode_gang
 import turbosqueeze_tpu_torch.kernels.decode_stream
 import turbosqueeze_tpu_torch.kernels.decode_tokens
 import turbosqueeze_tpu_torch.kernels.decode_xla
 import turbosqueeze_tpu_torch.kernels.encode_emit
 import turbosqueeze_tpu_torch.kernels.encode_xla
-import turbosqueeze_tpu_torch.parallel.pipeline
+import turbosqueeze_tpu_torch.parallel.pipeline as pipeline
+import turbosqueeze_tpu_torch.reference_codec
 import turbosqueeze_tpu_torch.runtime.api
+import turbosqueeze_tpu_torch.runtime.native
+import turbosqueeze_tpu_torch.utils.corpus as corpus
 assert "torch" in sys.modules
-loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+data = corpus.synthetic_text(60_000, seed=3) + bytes(5_000)
+d = corpus.synthetic_text(9_000, seed=4)
+for backend in ("native", "oracle"):
+    stream = tsq.compress(data, backend=backend)
+    assert tsq.decompress(stream, backend=backend) == data
+stream = tsq.compress(data, backend="cuda", device="cpu", level=1)
+for impl in ("gang", "bulk", "bulk2", "bulkn", "stream", "pallas", "xla"):
+    assert pipeline.decompress(stream, device="cpu", impl=impl) == data
+stream = tsq.compress(data, backend="native", dictionary=d)
+assert tsq.decompress(stream, backend="cuda", device="cpu",
+                      dictionary=d) == data
+loaded = [m for m in sys.modules if m.split(".")[0] in _BLOCKED]
 assert not loaded, loaded
 print("ok")
 """
 
 
 def test_import_never_loads_jax():
+    """Neither JAX nor the JAX package is loaded by the port: importing
+    every module, compressing and decoding on the CPU through the pipeline
+    (every route) and the native and oracle backends."""
     r = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
-                       capture_output=True, text=True, timeout=120)
+                       capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+_IMPORT = re.compile(r"^\s*(from|import)\s+turbosqueeze_tpu(\.|\s|$)",
+                     re.MULTILINE)
+
+
+def test_no_source_imports_the_jax_package():
+    files = sorted((REPO / "turbosqueeze_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 15
+    hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}" for f in files
+            for m in _IMPORT.finditer(f.read_text())]
+    assert not hits, hits
 
 
 @pytest.mark.parametrize("port, ref, names", [
     (PT, RT, ("LANES", "ROW_BYTES", "OUT_ROWS", "PAY_ROWS",
               "TOKENS_PER_CHUNK", "_TOKENS_CAP", "_SLOT_ROWS", "_DST_MASK",
               "_LEN_SHIFT", "_LEN_MASK")),
-    (PB, RB, ("WIN_BYTES", "WIN_ROWS", "TAIL_ROWS", "TAIL_BYTES", "MAX_WIN")),
+    (PB, RB, ("WIN_BYTES", "WIN_ROWS", "TAIL_ROWS", "TAIL_BYTES", "MAX_WIN",
+              "METAN_WORDS")),
     (PG, RG, ("GANG_WORDS", "GMETA_WORDS")),
     (PS, RS, ("_WIN_ROWS",)),
     (PE, RE, ("IN_ROWS", "OUT_ROWS", "CAND_ROWS", "_DICT_ROWS")),
@@ -126,8 +161,11 @@ def test_cuda_backend_without_gpu_raises(no_gpu):
     import turbosqueeze_tpu_torch as tsq
 
     stream = tsq.compress(b"hello hello hello hello", backend="oracle")
+    for backend in ("cuda", "auto"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tsq.decompress(stream, backend=backend)
     with pytest.raises(RuntimeError, match="CUDA"):
-        tsq.decompress(stream, backend="cuda")
+        tsq.decompress(stream)  # the default runs on the card
     for device in (None, "cuda", "cuda:0"):
         with pytest.raises(RuntimeError, match="CUDA"):
             PP.decompress(stream, device=device)

@@ -2,31 +2,32 @@
 pipeline.py and the public API) on the CPU, where the kernels run their
 plain versions: held against the JAX pipeline and the native core."""
 
-import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import pytest
 
-from turbosqueeze_tpu.format import CONTAINER_HEADER_SZ, FormatError
+from turbosqueeze_tpu.format import CONTAINER_HEADER_SZ
+from turbosqueeze_tpu.format import FormatError as RefFormatError
 from turbosqueeze_tpu.parallel import mesh as ref_mesh
 from turbosqueeze_tpu.parallel import pipeline as ref_pipeline
 from turbosqueeze_tpu.utils.corpus import synthetic_binary, synthetic_text
+from turbosqueeze_tpu_torch.format import FormatError
 from turbosqueeze_tpu_torch.kernels import decode_gang as PG
 from turbosqueeze_tpu_torch.kernels import decode_stream as PS
 from turbosqueeze_tpu_torch.parallel import pipeline
 
 import turbosqueeze_tpu_torch as tsq
 
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from test_torch_host_copies import jax_core, port_core  # noqa: E402
+
 
 @pytest.fixture(scope="module", autouse=True)
 def native():
-    from turbosqueeze_tpu.runtime import native
-
-    if not native.available():
-        subprocess.run(["make", "-C", "csrc"], check=True)
-        native._SEARCHED = False
-    assert native.available()
-    return native
+    jax_core()  # the JAX pipeline's reference runs on it
+    return port_core()
 
 
 @pytest.fixture
@@ -109,7 +110,7 @@ def test_declared_size_mismatch_raises(small):
     stream = bytearray(small[1])
     total = int.from_bytes(stream[8:CONTAINER_HEADER_SZ], "little")
     stream[8:CONTAINER_HEADER_SZ] = (total + 1).to_bytes(8, "little")
-    with pytest.raises(FormatError, match="declares"):
+    with pytest.raises(RefFormatError, match="declares"):
         _jax_gang(bytes(stream))
     with pytest.raises(FormatError, match="declares"):
         pipeline.decompress(bytes(stream), device="cpu")
@@ -123,9 +124,14 @@ def test_unknown_impl_raises(native):
 
 @pytest.mark.parametrize("backend", ["auto", "native", "oracle"])
 def test_api_host_backends_roundtrip(backend):
+    """Each backend's container decodes back; ``auto`` is the card's route
+    (here its plain versions, ``device="cpu"``) and gives native's bytes."""
     data = synthetic_text(30_000, seed=71)
-    stream = tsq.compress(data, backend=backend, level=0)
-    assert tsq.decompress(stream, backend=backend) == data
+    kw = {"device": "cpu"} if backend == "auto" else {}
+    stream = tsq.compress(data, backend=backend, level=0, **kw)
+    assert tsq.decompress(stream, backend=backend, **kw) == data
+    if backend == "auto":
+        assert stream == tsq.compress(data, backend="native", level=0)
 
 
 def test_api_rejects_unported_routes(native):
@@ -133,7 +139,7 @@ def test_api_rejects_unported_routes(native):
     with pytest.raises(NotImplementedError):
         tsq.decompress(b"TSQX" + bytes(60), backend="cuda")
     with pytest.raises(NotImplementedError):
-        pipeline.decompress(stream, device="cpu", impl="bulk")
+        pipeline.compress(b"data", device="cpu", emit_impl="flat")
     with pytest.raises(NotImplementedError):
         pipeline.compress(b"data", device="cpu", emit_impl="bulk")
     with pytest.raises(NotImplementedError):

@@ -2,23 +2,23 @@
 hand-written CUDA kernels for Hopper (H100).
 
 The port of ``turbosqueeze_tpu``'s device path, which stays the reference.
-It shares that package's host modules that import no JAX — the container
-format, the native C++ core (``turbosqueeze_tpu.runtime.native``, built
-from ``csrc/``), the oracle codec and the corpora — and re-declares what
-the JAX modules hold. Importing it never loads JAX.
+It imports nothing of that package: it keeps its own copies of the host
+modules it needs (``format``, ``reference_codec``, ``utils/corpus``) and
+its own binding to the C++ host core (``runtime/native.py``, built from
+the shared ``csrc/`` into ``build/torch_core/``). Importing it never loads
+JAX.
 
-Compress and decode of a ``.tsq`` container run on the card
-(``compress``/``decompress`` with ``backend="cuda"``), through three
-kernels in ``kernels/csrc/``: the token emitter (level 0 with the
-upstream's hash table, level 1 from phase-A candidates), the gang-stream
-decoder (blocks the native core resolves) and the raw-payload stream
-decoder (the fallback). Level >= 2 compress searches on the card and
-parses on the host.
+``compress`` and ``decompress`` run on the card by default
+(``backend="auto"`` is ``"cuda"``): compress through the token emitter,
+decode through the gang-stream, bulk record-stream, raw-payload stream and
+token-chunk decoders, hand-written CUDA kernels in ``kernels/csrc/``. The
+host codecs run only when asked for by name (``backend="native"`` or
+``"oracle"``).
 """
 
 __version__ = "0.1.0"
 
-from turbosqueeze_tpu import format  # noqa: F401
-from turbosqueeze_tpu.format import BLOCK_SZ, OUTPUT_SZ, FormatError  # noqa: F401
+from . import format  # noqa: F401
+from .format import BLOCK_SZ, OUTPUT_SZ, FormatError  # noqa: F401
 
 from .runtime.api import compress, decompress  # noqa: F401

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from turbosqueeze_tpu.format import FormatError
+from .format import FormatError
 
 from .kernels import decode_tokens as K
 from .kernels.decode_tokens import planes_to_torch
@@ -40,7 +40,7 @@ def tokenize_with_dict(payload: bytes, ext: bool, dictionary: bytes | None):
     Returns (extended_payload, dst, src, ln, lit, size, base) where
     positions live in the dict-extended output space [0, base + size).
     """
-    from turbosqueeze_tpu.runtime import native
+    from .runtime import native
 
     base = len(dictionary) if dictionary else 0
     dst, src, ln, lit, size = native.tokenize_block(payload, ext, base)
@@ -86,7 +86,7 @@ def decode_block_device(payload: bytes, ext: bool, *, device,
 
 def decode_block_reference_tokens(payload: bytes, ext: bool) -> bytes:
     """Pure-numpy token replay (checks the tokenizer's contract)."""
-    from turbosqueeze_tpu.runtime import native
+    from .runtime import native
 
     dst, src, ln, lit, size = native.tokenize_block(payload, ext)
     out = np.zeros(size + 80, dtype=np.uint8)

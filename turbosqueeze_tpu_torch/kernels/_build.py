@@ -14,8 +14,8 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("decode_gang.cu", "decode_stream.cu", "decode_tokens.cu",
-           "encode_emit.cu")
+SOURCES = ("decode_bulk.cu", "decode_gang.cu", "decode_stream.cu",
+           "decode_tokens.cu", "encode_emit.cu")
 LIB_PATH = (Path(__file__).resolve().parents[2] / "build" / "cuda"
             / "libtsq_torch_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -78,6 +78,10 @@ def library() -> ctypes.CDLL:
         # out_rows, max_win, slot_recs, stream
         lib.tsq_decode_gang.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
         lib.tsq_decode_gang.restype = I
+        # lit, rec, meta, out, n_blocks, nblk, lit_rows, rec_rows, out_rows,
+        # max_win, meta_words, nwin_base, end_base, stream
+        lib.tsq_decode_bulk.argtypes = [P, P, P, P, *[I] * 9, P]
+        lib.tsq_decode_bulk.restype = I
         # payload, meta, dict, out, n_blocks, pay_rows, out_rows,
         # dict_rows, stream
         lib.tsq_decode_stream.argtypes = [P, P, P, P, I, I, I, I, P]

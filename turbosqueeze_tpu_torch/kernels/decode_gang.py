@@ -33,8 +33,9 @@ import torch
 
 from ..parallel.mesh import pad_batch
 from . import _build
-from .decode_bulk import (MAX_WIN, TAIL_BYTES, WIN_BYTES, WIN_ROWS,
-                          pack_lit_words, pack_rec_words, rows_for_bytes)
+from .decode_bulk import (EMPTY_PREP, MAX_WIN, TAIL_BYTES, WIN_BYTES,
+                          WIN_ROWS, pack_lit_words, pack_rec_words,
+                          resolve_blocks, rows_for_bytes)
 from .decode_tokens import LANES, OUT_ROWS, ROW_BYTES
 
 GANG_WORDS = 16      # words per 8-record slot (2 per record)
@@ -219,16 +220,13 @@ def prep_gang(payloads_ext, nblk: int, slot_recs: int = 8, map_fn=map,
     gmeta (Bn//nblk, 32), sizes) with Bn = len rounded up to a multiple
     of nblk.
     """
-    from turbosqueeze_tpu.runtime import native
+    from ..runtime import native
 
-    preps = list(map_fn(lambda pe: native.bulk_prep(*pe, dictionary),
-                        payloads_ext))
-    if any(p is None for p in preps):
+    preps = resolve_blocks(payloads_ext, map_fn, dictionary)
+    if preps is None:
         return None
     sizes = [int(p[2][0]) for p in preps]
-    empty = (np.zeros(0, np.uint8), np.zeros(0, np.uint32),
-             np.zeros(8, np.uint32))
-    preps += [empty] * (pad_batch(len(preps), nblk) - len(preps))
+    preps += [EMPTY_PREP] * (pad_batch(len(preps), nblk) - len(preps))
     Bn = len(preps)
     merged = list(map_fn(lambda g: native.bulk_gang(
         [preps[nblk * g + k][1] for k in range(nblk)],

@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from turbosqueeze_tpu.format import BLOCK_SZ, OUTPUT_SZ
+from ..format import BLOCK_SZ, OUTPUT_SZ
 
 from . import _build
 

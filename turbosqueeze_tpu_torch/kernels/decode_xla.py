@@ -28,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from turbosqueeze_tpu.format import BLOCK_SZ, OUTPUT_SZ
+from ..format import BLOCK_SZ, OUTPUT_SZ
 
 OUT_N = BLOCK_SZ
 PAY_N = OUTPUT_SZ

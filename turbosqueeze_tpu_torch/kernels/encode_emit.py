@@ -28,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from turbosqueeze_tpu.format import (BLOCK_SZ, HASH_ENTRIES, MLEN_TABLE,
+from ..format import (BLOCK_SZ, HASH_ENTRIES, MLEN_TABLE,
                                      OUTPUT_SZ)
 
 from . import _build

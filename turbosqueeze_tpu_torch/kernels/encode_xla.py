@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from turbosqueeze_tpu.format import HASH_MASK
+from ..format import HASH_MASK
 
 
 def hash4_words(v4: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,11 @@ blocks for the route ``impl`` names:
     then ``native.bulk_gang``) into literal planes and a gang stream, and
     the gang kernel decodes the window; a window with a block the resolver
     declines goes through the stream kernel instead;
+  * ``"bulk"``, ``"bulk2"``, ``"bulkn"``: the same resolve, then the bulk
+    kernel runs the record streams as they are (``bulk``), zipped in block
+    pairs (``native.bulk_merge2``) or in groups of the JAX package's
+    co-schedule width, 4, 2 or 1 (``native.bulk_mergen``); a declined
+    window goes through the stream kernel;
   * ``"stream"``: the raw payloads are the only input of the stream kernel,
     which parses them on the card;
   * ``"pallas"``: the native tokenizer parses every block on the host, in a
@@ -39,15 +44,14 @@ parse on the host. Only each window's live payload prefix comes back.
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from typing import List
 
 import numpy as np
 import torch
 
-from turbosqueeze_tpu.format import (ContainerHeader, FormatError,
-                                     pack_block_header, scan_block_table,
-                                     split_blocks)
-
+from ..format import (ContainerHeader, FormatError, pack_block_header,
+                      scan_block_table, split_blocks)
 from ..kernels import decode_bulk as DBK
 from ..kernels import decode_gang as DGK
 from ..kernels import decode_stream as DST
@@ -56,6 +60,7 @@ from ..kernels import decode_xla as DXL
 from ..kernels import encode_emit as EE
 from ..kernels import encode_xla as EX
 from ..kernels.decode_tokens import planes_to_torch
+from ..runtime import native
 from . import mesh as mesh_mod
 
 # records per gang slot by co-schedule width: the JAX package's table. The
@@ -73,7 +78,6 @@ WINDOW_BLOCKS = 32
 XLA_WINDOW_BLOCKS = 16
 
 _DICT_PAD = 1 << 16  # dict-extended output/payload headroom (bucketed)
-_BULK_IMPLS = ("bulk", "bulk2", "bulkn")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -139,6 +143,42 @@ def _gang_window(stream, table_window, device, pool, dictionary=None):
         out_rows=3 * DBK.WIN_ROWS if base else DK.OUT_ROWS,
         max_win=3 if base else DBK.MAX_WIN)
     return words, base
+
+
+def bulk_abi(impl: str, preps):
+    """The stream ABI and group width a bulk route decodes a window of
+    resolved blocks with: ``bulkn`` takes the JAX package's width, the
+    widest of 4 and 2 whose TPU scratch fits the window's (bucketed)
+    literal planes, and the single-block ABI where neither does."""
+    if impl != "bulkn":
+        return impl, {"bulk": 1, "bulk2": 2}[impl]
+    lit_rows = _round_up(max(DBK.rows_for_bytes(len(p[0]))
+                             for p in preps), 64)
+    nblk = next((k for k in (4, 2) if DBK.coschedule_fit(lit_rows, k)), 1)
+    return ("bulkn" if nblk > 1 else "bulk"), nblk
+
+
+def _bulk_window(stream, table_window, device, pool, dictionary=None, *,
+                 impl: str):
+    """Resolve one window of blocks on the host and launch the bulk kernel
+    through the wrapper of ``impl``'s stream ABI. Returns (words,
+    dict_len), or None when the resolver declines a block."""
+    payloads = [(stream[off:off + psz], ext) for off, psz, ext in table_window]
+    preps = DBK.resolve_blocks(payloads, pool.map, dictionary)
+    if preps is None:
+        return None
+    abi, nblk = bulk_abi(impl, preps)
+    lit, rec, meta, _ = DBK.pack_batch(preps, abi, nblk, pool.map)
+    base = len(dictionary) if dictionary else 0
+    # the dict-extended output may reach into a third 2 MiB window
+    kw = {"out_rows": 3 * DBK.WIN_ROWS if base else DK.OUT_ROWS,
+          "max_win": 3 if base else DBK.MAX_WIN}
+    planes = planes_to_torch(lit, rec, meta, device=device)
+    if abi == "bulk":
+        return DBK.decode_bulk_batch(*planes, **kw), base
+    if abi == "bulk2":
+        return DBK.decode_bulk2_batch(*planes, **kw), base
+    return DBK.decode_bulkn_batch(*planes, nblk=nblk, **kw), base
 
 
 def _stream_window(stream, table_window, device, pool, dictionary=None):
@@ -218,30 +258,18 @@ def _xla_window(stream, table_window, device, pool, dictionary=None):
 
 
 _WINDOW_ROUTES = {"gang": _gang_window, "stream": _stream_window,
-                  "pallas": _pallas_window, "xla": _xla_window}
+                  "pallas": _pallas_window, "xla": _xla_window,
+                  **{impl: partial(_bulk_window, impl=impl)
+                     for impl in ("bulk", "bulk2", "bulkn")}}
 
 
 def _check_impl(impl: str, routes) -> None:
-    """Raise for a route that is not ported, unknown, or that needs the
-    native core where it is not built; loads the core otherwise (its
-    loader is not safe to enter from the pool's threads at once)."""
-    from turbosqueeze_tpu.runtime import native
-
-    if impl in _BULK_IMPLS:
-        raise NotImplementedError(
-            f"impl={impl!r} is not ported yet (ROADMAP.md, queue 2 #4: the "
-            f"decode_bulk kernels)")
     if impl not in routes:
         raise ValueError(f"unknown impl: {impl!r}")
-    if impl != "stream" and not native.available():
-        raise RuntimeError(f"impl={impl!r} needs the native core "
-                           "(run `make -C csrc`)")
 
 
 def _check_dictionary(dictionary):
     """A usable dictionary, or None for none (an empty one is none)."""
-    from turbosqueeze_tpu.runtime import native
-
     if not dictionary:
         return None
     if len(dictionary) > native.MAX_DICT:
@@ -257,20 +285,20 @@ def decompress(stream: bytes, device=None, impl: str = "auto",
     device: a CUDA device (default: the first), or ``"cpu"`` for the
     kernels' plain PyTorch versions; a CUDA device with no GPU raises.
     impl: ``"gang"`` = host resolve + gang kernel, with the stream kernel
-    for windows the resolver declines; ``"stream"`` = the stream kernel
-    for every window; ``"pallas"`` = host tokenize + token-chunk kernel;
-    ``"xla"`` = host tokenize + the torch scatter/gather decode;
-    ``"auto"`` = gang when the native core is built, else stream. The bulk
-    routes are not ported yet. window_blocks: blocks per window (default
-    ``WINDOW_BLOCKS``, ``XLA_WINDOW_BLOCKS`` for xla). dictionary: the
-    preset dictionary the container was compressed with. progress: called
-    with ``(blocks_done, n_blocks)`` once per block, in block order, as the
-    blocks are assembled.
+    for windows the resolver declines; ``"bulk"``, ``"bulk2"``,
+    ``"bulkn"`` = host resolve + the bulk kernel on single, paired or
+    N-way merged record streams, with the same fallback; ``"stream"`` =
+    the stream kernel for every window; ``"pallas"`` = host tokenize +
+    token-chunk kernel; ``"xla"`` = host tokenize + the torch
+    scatter/gather decode; ``"auto"`` = gang. The host work runs in the
+    native core, which is built at first use. window_blocks: blocks per
+    window (default ``WINDOW_BLOCKS``, ``XLA_WINDOW_BLOCKS`` for xla).
+    dictionary: the preset dictionary the container was compressed with.
+    progress: called with ``(blocks_done, n_blocks)`` once per block, in
+    block order, as the blocks are assembled.
     """
-    from turbosqueeze_tpu.runtime import native
-
     if impl == "auto":
-        impl = "gang" if native.available() else "stream"
+        impl = "gang"
     _check_impl(impl, _WINDOW_ROUTES)
     dictionary = _check_dictionary(dictionary)
     dev = mesh_mod.block_devices(device)[0]
@@ -404,18 +432,12 @@ def compress(data: bytes, ext: bool = True, level: int = 1, device=None,
     block order. emit_impl: only ``"scan"``, the single-pass emitter, is
     ported. window_blocks: blocks per window (default ``WINDOW_BLOCKS``).
     """
-    from turbosqueeze_tpu.runtime import native
-
     if emit_impl in ("bulk", "flat"):
         raise NotImplementedError(
             f"emit_impl={emit_impl!r} is not ported yet (ROADMAP.md, queue "
             f"2: the encode_bulk and encode_flat kernels)")
     if emit_impl != "scan":
         raise ValueError(f"unknown emit_impl: {emit_impl!r}")
-    # available() loads the core here, before the pool's threads need it
-    if level >= 2 and not native.available():
-        raise RuntimeError("level >= 2 needs the native core "
-                           "(run `make -C csrc`)")
     dlen = 0
     if dictionary is not None:
         if not 0 < len(dictionary) <= native.MAX_DICT:

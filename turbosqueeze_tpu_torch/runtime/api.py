@@ -3,19 +3,24 @@ of ``turbosqueeze_tpu/runtime/api.py``.
 
 Backends:
   * ``cuda``   — the device pipeline on the GPU (``parallel/pipeline.py``):
-    compress and decode of ``.tsq`` containers run on the card.
-  * ``native`` — the shared C++ multithreaded host core.
-  * ``oracle`` — the shared pure-Python exact codec.
-  * ``auto``   — as in the JAX package: native if built, else oracle.
+    compress and decode of ``.tsq`` containers run on the card; raises
+    where there is no GPU (``device="cpu"`` runs the kernels' plain
+    versions instead).
+  * ``auto``   — the default: ``cuda``.
+  * ``native`` — the C++ multithreaded host core (``runtime/native.py``),
+    only when asked for by name.
+  * ``oracle`` — the pure-Python exact codec (``reference_codec.py``),
+    only when asked for by name.
 
 TSQX containers are not ported yet.
 """
 
 from __future__ import annotations
 
-from turbosqueeze_tpu.format import FormatError
-
+from .. import reference_codec
+from ..format import FormatError
 from ..parallel import pipeline
+from . import native
 
 _BACKENDS = ("auto", "cuda", "native", "oracle")
 
@@ -23,25 +28,23 @@ _BACKENDS = ("auto", "cuda", "native", "oracle")
 def _resolve(backend: str) -> str:
     if backend not in _BACKENDS:
         raise ValueError(f"unknown backend: {backend!r}")
-    if backend == "auto":
-        from turbosqueeze_tpu.runtime import native
-
-        return "native" if native.available() else "oracle"
-    return backend
+    return "cuda" if backend == "auto" else backend
 
 
 def compress(data: bytes, ext: bool = True, backend: str = "auto",
              level: int = 0, dictionary: bytes = None, progress=None,
              device=None) -> bytes:
-    """Compress bytes into a .tsq container.
+    """Compress bytes into a .tsq container, on the card unless
+    ``backend`` names a host codec.
 
     ``level`` 0 reproduces the upstream greedy parse bit for bit; >= 1 are
     the exact candidate parses of the same format (>= 2 the lazy one).
     ``dictionary`` (<= 65532 bytes) is shared context virtually preceding
     every block, at level >= 1; both ends must use the same one.
     ``progress`` is called with ``(blocks_done, n_blocks)`` per block.
-    ``device`` picks the card for ``backend='cuda'`` (default: the first
-    CUDA device); every backend's container is the same bytes.
+    ``device`` picks the card (default: the first CUDA device; ``"cpu"``
+    runs the kernels' plain versions); every backend's container is the
+    same bytes.
     """
     b = _resolve(backend)
     if dictionary is not None:
@@ -49,8 +52,6 @@ def compress(data: bytes, ext: bool = True, backend: str = "auto",
             raise NotImplementedError(
                 "dictionary mode needs the native or cuda backend")
         if b == "native":
-            from turbosqueeze_tpu.runtime import native
-
             return native.compress_dict(data, dictionary, ext,
                                         level=max(level, 1),
                                         progress=progress)
@@ -61,21 +62,18 @@ def compress(data: bytes, ext: bool = True, backend: str = "auto",
         return pipeline.compress(data, ext, level=level, device=device,
                                  progress=progress)
     if b == "oracle":
-        from turbosqueeze_tpu import reference_codec
-
         return reference_codec.compress(data, ext)
-    from turbosqueeze_tpu.runtime import native
-
     return native.compress(data, ext, level=level, progress=progress)
 
 
 def decompress(stream: bytes, backend: str = "auto",
                dictionary: bytes = None, device=None,
                progress=None) -> bytes:
-    """Decompress a .tsq container. ``dictionary`` is the preset
-    dictionary it was compressed with, if any. ``device`` picks the card
-    for ``backend='cuda'`` (default: the first CUDA device). ``progress``
-    is called with ``(blocks_done, n_blocks)`` per block."""
+    """Decompress a .tsq container, on the card unless ``backend`` names a
+    host codec. ``dictionary`` is the preset dictionary it was compressed
+    with, if any. ``device`` picks the card (default: the first CUDA
+    device; ``"cpu"`` runs the kernels' plain versions). ``progress`` is
+    called with ``(blocks_done, n_blocks)`` per block."""
     if len(stream) >= 4 and stream[:4] == b"TSQX":
         raise NotImplementedError("TSQX containers are not ported yet")
     if len(stream) < 16 or stream[:4] != b"TSQ1":
@@ -84,18 +82,8 @@ def decompress(stream: bytes, backend: str = "auto",
     if b == "cuda":
         return pipeline.decompress(stream, device=device,
                                    dictionary=dictionary, progress=progress)
-    if dictionary is not None:
-        if b == "oracle":
-            from turbosqueeze_tpu import reference_codec
-
-            return reference_codec.decompress(stream, dictionary=dictionary)
-        from turbosqueeze_tpu.runtime import native
-
-        return native.decompress_dict(stream, dictionary, progress=progress)
     if b == "oracle":
-        from turbosqueeze_tpu import reference_codec
-
-        return reference_codec.decompress(stream)
-    from turbosqueeze_tpu.runtime import native
-
+        return reference_codec.decompress(stream, dictionary=dictionary)
+    if dictionary is not None:
+        return native.decompress_dict(stream, dictionary, progress=progress)
     return native.decompress(stream, progress=progress)
