@@ -40,8 +40,9 @@ bulk decoder (three stream ABIs, one wrapper each). Phases:
      dictionary=d)`` and every route, against ``native.decompress_dict``;
   8. the bulk kernel through its three wrappers against its plain version
      (mixed blocks: levels 0-2, ext on and off, a two-window block; a
-     dictionary in three windows; garbage planes; one full level-1 block
-     per ABI, timed); phase 3's containers through ``impl="bulk"``,
+     dictionary in three windows; garbage planes; one launch per ABI on
+     the same full level-1 blocks, whole groups at the main path's width,
+     timed); phase 3's containers through ``impl="bulk"``,
      ``"bulk2"`` and ``"bulkn"``, against the input and the native decoder,
      timed with the layers apart; and phase 7's dictionary container
      through the three routes.
@@ -51,8 +52,9 @@ bytes the format defines (each block's first ``size`` bytes, or each
 payload's first ``osz`` bytes). Any failure raises and the script exits
 non-zero. The last lines are a JSON record of the kernels (each with its
 launches on a main path, its time and its plain version's on one full
-block, and the least time the card could take for that block's bytes) and
-the device line. Run from the repository root:
+block, or for the bulk kernel one launch on a whole group of full blocks,
+and the least time the card could take for those bytes) and the device
+line. Run from the repository root:
 
     python3 chip_smoke.py
 """
@@ -927,27 +929,17 @@ def phase7(errs, counts, timing, data, streams):
             launches=",".join(f"{k}:{launched[k]}" for k in kernels))
 
 
-def _bulk_decode(abi, nblk, planes, **kw):
-    """The bulk kernel (or its plain version) through ``abi``'s wrapper."""
-    from turbosqueeze_tpu_torch.kernels import decode_bulk as DB
-
-    if abi == "bulk":
-        return DB.decode_bulk_batch(*planes, **kw)
-    if abi == "bulk2":
-        return DB.decode_bulk2_batch(*planes, **kw)
-    return DB.decode_bulkn_batch(*planes, nblk=nblk, **kw)
-
-
 def _bulk_compare(errs, abi, nblk, planes, datas, what, base=0, **kw):
     """The bulk kernel on the card's copy of numpy ``planes`` against its
     plain version on the host's: each block's bytes and every word."""
+    from turbosqueeze_tpu_torch.kernels import decode_bulk as DB
     from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
 
-    got = _bulk_decode(abi, nblk, planes_to_torch(*planes, device="cuda"),
-                       **kw)
+    got = DB.decode_bulk(abi, nblk, *planes_to_torch(*planes, device="cuda"),
+                         **kw)
     torch.cuda.synchronize()
-    ref = _bulk_decode(abi, nblk, planes_to_torch(*planes, device="cpu"),
-                       **kw)
+    ref = DB.decode_bulk(abi, nblk, *planes_to_torch(*planes, device="cpu"),
+                         **kw)
     for k, d in enumerate(datas):
         _compare(errs, f"decode_{abi}", _bytes_of(got, k, base, len(d)),
                  _bytes_of(ref, k, base, len(d)), d, f"{what} block {k}")
@@ -986,10 +978,58 @@ def _garbage_bulk(rng, abi, nblk):
 _BULK_ABIS = (("bulk", 1), ("bulk2", 2), ("bulkn", 3), ("bulkn", 4))
 
 
+def _bulk_full_group(errs, timing, data, stream):
+    """One launch per ABI on the same full blocks of the level-1
+    container, whole groups at the width the main path takes for them
+    (bulkn's is the one the route picks for the container's first
+    window): timed, held to the plain version and the input."""
+    from turbosqueeze_tpu_torch.format import scan_block_table
+    from turbosqueeze_tpu_torch.kernels import decode_bulk as DB
+    from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
+    from turbosqueeze_tpu_torch.parallel import pipeline
+
+    _, table = scan_block_table(stream)
+    with ThreadPoolExecutor() as pool:
+        wprep = DB.resolve_blocks([(stream[o:o + n], e) for o, n, e
+                                   in table[:pipeline.WINDOW_BLOCKS]],
+                                  pool.map)
+    width = pipeline.bulk_abi("bulkn", wprep)[1]
+    fprep = wprep[:max(width, 2)]
+    del wprep
+    sizes = [int(p[2][0]) for p in fprep]
+    for abi, nblk in (("bulk", 1), ("bulk2", 2), ("bulkn", width)):
+        planes = DB.pack_batch(fprep, abi, nblk)[:3]
+        dev = planes_to_torch(*planes, device="cuda")
+        host = planes_to_torch(*planes, device="cpu")
+        ms = _cuda_ms(lambda: DB.decode_bulk(abi, nblk, *dev), 5)
+        t0 = time.perf_counter()
+        ref = DB.decode_bulk(abi, nblk, *host)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = DB.decode_bulk(abi, nblk, *dev)
+        for k, size in enumerate(sizes):
+            _compare(errs, f"decode_{abi}", _bytes_of(got, k, 0, size),
+                     _bytes_of(ref, k, 0, size),
+                     data[4 * MiB * k:4 * MiB * k + size],
+                     f"{abi} full group block {k}")
+        # the bytes the work needs: each block's literals and each group's
+        # stream to its last window's end, read once; meta; the outputs
+        _, _, end_base = DB._ABIS[abi]
+        lit_b = sum(len(p[0]) for p in fprep)
+        rec_b = 4 * int((planes[2][:, end_base:end_base + DB.MAX_WIN]
+                         .view(np.uint32).max(axis=1)).sum())
+        moved = lit_b + rec_b + _nbytes(dev[2], got)
+        timing[f"decode_{abi}"] = (ms, plain_ms, moved)
+        say("phase8", abi=abi, nblk=nblk, full_group=True, blocks=len(fprep),
+            exact=True, kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.1f}",
+            lit_bytes=lit_b, rec_bytes=rec_b, meta_bytes=_nbytes(dev[2]),
+            out_bytes=_nbytes(got), bound_ms=f"{moved / HBM_BYTES_PER_MS:.6f}")
+        del dev, host, got, ref
+
+
 def phase8(errs, counts, timing, data, streams):
     """The bulk record-stream decode: the kernel through its three wrappers
     against its plain version, and the three bulk routes end to end."""
-    from turbosqueeze_tpu_torch.format import iter_container, scan_block_table
+    from turbosqueeze_tpu_torch.format import iter_container
     from turbosqueeze_tpu_torch.kernels import decode_bulk as DB
     from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
     from turbosqueeze_tpu_torch.parallel import pipeline
@@ -1024,41 +1064,14 @@ def phase8(errs, counts, timing, data, streams):
     rng = np.random.default_rng(10)
     for abi, nblk in _BULK_ABIS[:3]:
         planes = _garbage_bulk(rng, abi, nblk)
-        got = _bulk_decode(abi, nblk, planes_to_torch(*planes, device="cuda"),
-                           **kw)
-        ref = _bulk_decode(abi, nblk, planes_to_torch(*planes, device="cpu"),
-                           **kw)
+        got = DB.decode_bulk(abi, nblk,
+                             *planes_to_torch(*planes, device="cuda"), **kw)
+        ref = DB.decode_bulk(abi, nblk,
+                             *planes_to_torch(*planes, device="cpu"), **kw)
         check(torch.equal(got.cpu(), ref), f"garbage {abi}: kernel != plain")
     say("phase8", garbage_planes="no fault", exact=True)
 
-    # one full level-1 text block per ABI (padded to a whole group with
-    # empty blocks), at the main path's plane shapes
-    stream = streams[1]
-    _, table = scan_block_table(stream)
-    off, psz, ext = table[1]
-    fprep = DB.resolve_blocks([(stream[off:off + psz], ext)])
-    size = int(fprep[0][2][0])
-    for abi, nblk in (("bulk", 1), ("bulk2", 2), ("bulkn", 4)):
-        planes = DB.pack_batch(fprep, abi, nblk)[:3]
-        dev = planes_to_torch(*planes, device="cuda")
-        host = planes_to_torch(*planes, device="cpu")
-        ms = _cuda_ms(lambda: _bulk_decode(abi, nblk, dev), 5)
-        t0 = time.perf_counter()
-        ref = _bulk_decode(abi, nblk, host)
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        got = _bulk_decode(abi, nblk, dev)
-        _compare(errs, f"decode_{abi}", _bytes_of(got, 0, 0, size),
-                 _bytes_of(ref, 0, 0, size), data[4 * MiB:4 * MiB + size],
-                 f"{abi} full block")
-        moved = _nbytes(*dev, got)
-        timing[f"decode_{abi}"] = (ms, plain_ms, moved)
-        say("phase8", abi=abi, nblk=nblk, full_block=True, exact=True,
-            kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.1f}",
-            lit_bytes=_nbytes(dev[0]), rec_bytes=_nbytes(dev[1]),
-            meta_bytes=_nbytes(dev[2]), out_bytes=_nbytes(got),
-            record_words=len(fprep[0][1]),
-            bound_ms=f"{moved / HBM_BYTES_PER_MS:.6f}")
-        del dev, host, got, ref
+    _bulk_full_group(errs, timing, data, streams[1])
 
     # the three bulk routes end to end on the 256 MiB containers
     mb = len(data) / 1e6
@@ -1136,7 +1149,7 @@ def _bulk_layers(stream, impl, mb):
     upload_ms = (time.perf_counter() - t0) * 1e3
 
     def kernels():
-        return [_bulk_decode(abi, nblk, d) for d, (abi, nblk)
+        return [DB.decode_bulk(abi, nblk, *d) for d, (abi, nblk)
                 in zip(dev, abis)]
 
     kernel_ms = _cuda_ms(kernels, 3)

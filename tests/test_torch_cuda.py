@@ -306,12 +306,8 @@ _BULK = [("bulk", 1), ("bulk2", 2), ("bulkn", 1), ("bulkn", 2), ("bulkn", 3),
 
 
 def _bulk_decode(abi, nblk, planes, device, **kw):
-    t = planes_to_torch(*planes, device=device)
-    if abi == "bulk":
-        return PB.decode_bulk_batch(*t, **kw)
-    if abi == "bulk2":
-        return PB.decode_bulk2_batch(*t, **kw)
-    return PB.decode_bulkn_batch(*t, nblk=nblk, **kw)
+    return PB.decode_bulk(abi, nblk, *planes_to_torch(*planes, device=device),
+                          **kw)
 
 
 @pytest.mark.parametrize("abi, nblk", _BULK)

@@ -48,13 +48,8 @@ def _ref(abi, nblk, planes, **kw):
 
 
 def _port(abi, nblk, planes, **kw):
-    t = planes_to_torch(*planes, device="cpu")
-    if abi == "bulk":
-        out = PB.decode_bulk_batch(*t, **kw)
-    elif abi == "bulk2":
-        out = PB.decode_bulk2_batch(*t, **kw)
-    else:
-        out = PB.decode_bulkn_batch(*t, nblk=nblk, **kw)
+    out = PB.decode_bulk(abi, nblk, *planes_to_torch(*planes, device="cpu"),
+                         **kw)
     assert out.dtype == torch.int32
     return out.numpy()
 
@@ -138,7 +133,19 @@ def test_dictionary_three_windows(native):
     got = _port("bulk", 1, planes[:3], **kw)
     assert _block(ref, 0, len(d), len(data)) == data
     assert _block(got, 0, len(d), len(data)) == data
-    assert PB.decode_bulk_block(payload, ext, dictionary=d) == data
+    assert PB.decode_bulk_block(payload, ext, device="cpu",
+                                dictionary=d) == data
+
+
+def test_block_helper_defaults_to_the_card(native, monkeypatch):
+    """``decode_bulk_block`` decodes on the card unless asked for the CPU:
+    with no GPU it raises rather than run the plain version."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = synthetic_text(20_000, seed=61)
+    (_, payload, ext), = iter_container(native.compress(data, True))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PB.decode_bulk_block(payload, ext)
+    assert PB.decode_bulk_block(payload, ext, device="cpu") == data
 
 
 def test_prep_batches_equal_reference(native):
@@ -204,6 +211,8 @@ def test_wrapper_refuses_bad_planes():
         PB.decode_bulk_batch(lit, rec, meta, max_win=4)
     with pytest.raises(ValueError, match="meta is on meta"):
         PB.decode_bulk_batch(lit, rec, meta.to("meta"))
+    with pytest.raises(ValueError, match="ABI"):
+        PB.decode_bulk("bulk3", 1, lit, rec, meta)
     before = dict(PB.launches)
     PB.decode_bulk_batch(lit, rec, meta)
     assert PB.launches == before  # CPU: the plain version, no launch

@@ -7,17 +7,17 @@ This module also holds the native-core helpers of the port's tests.
 ``port_core()`` is the port's binding, built by its own locked build
 (``build/torch_core/``). ``jax_core()`` is the JAX package's binding,
 which loads ``build/libtsq_core.so``: where that library is missing, the
-helper publishes a copy of the port's build there under the same
-``fcntl`` lock, atomically, and checks ``available()`` again inside the
-lock. No test of the port runs ``make``. Importing this module runs both
+helper compiles ``csrc`` there with the Makefile's flags (a build of its
+own, not a copy of the port's) under the same ``fcntl`` lock, publishes
+it atomically, and checks ``available()`` again inside the lock. The two
+bindings then load two builds of the same sources. No test of the port
+runs ``make``. Importing this module runs both
 helpers once: pytest imports every test module in every worker before it
 runs a test, so the library exists before any fixture looks for it.
 """
 
 import ctypes
 import fcntl
-import os
-import shutil
 import subprocess
 import sys
 import threading
@@ -59,20 +59,18 @@ def jax_core():
 
     if _loads(ref):
         return ref
-    lib = PN.build()
+    PN.LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
     with open(PN.LIB_PATH.parent / "build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if not _loads(ref):
-            dst = REPO / "build" / "libtsq_core.so"
-            tmp = dst.with_name(f"{dst.name}.{os.getpid()}.tmp")
-            shutil.copyfile(lib, tmp)
-            os.replace(tmp, dst)  # atomic: never a partial library
+        if not _loads(ref):  # a build of its own, as make would give
+            PN.compile_core(REPO / "build" / "libtsq_core.so")
     assert _loads(ref)
     return ref
 
 
 def _prebuild():
     try:
+        port_core()
         jax_core()
     except Exception:  # noqa: BLE001 - the fixtures raise it again
         pass

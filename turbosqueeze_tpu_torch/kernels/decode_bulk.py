@@ -199,6 +199,22 @@ def decode_bulkn_batch(lit_words: torch.Tensor, recn_words: torch.Tensor,
                   max_win)
 
 
+def decode_bulk(abi: str, nblk: int, lit_words: torch.Tensor,
+                rec_words: torch.Tensor, meta: torch.Tensor,
+                **kw) -> torch.Tensor:
+    """The planes of stream ABI ``abi`` (``pack_batch``) through its
+    wrapper; ``nblk`` is the group width (1 for ``bulk``, 2 for
+    ``bulk2``)."""
+    if abi == "bulk":
+        return decode_bulk_batch(lit_words, rec_words, meta, **kw)
+    if abi == "bulk2":
+        return decode_bulk2_batch(lit_words, rec_words, meta, **kw)
+    if abi == "bulkn":
+        return decode_bulkn_batch(lit_words, rec_words, meta, nblk=nblk,
+                                  **kw)
+    raise ValueError(f"unknown bulk stream ABI {abi!r}")
+
+
 def _launch(lit_words, rec_words, meta, abi, nblk, out_rows, max_win):
     lit_words, rec_words, meta = (t.contiguous() for t in
                                   (lit_words, rec_words, meta))
@@ -246,119 +262,56 @@ def _member_entries(words: list, meta: list, abi: str, nblk: int, k: int,
     return out
 
 
-class _Writes:
-    """The bytes some entries write, gathered from the plane as it stands
-    before any of them is written: (dst, src) in the output plane, (dst,
-    src) in the literal plane, (dst, value) of constant bytes (a fill, or
-    0 for a source past its plane), and the bytes written per row."""
-
-    def __init__(self):
-        self.plane, self.lit, self.const = ([], []), ([], []), ([], [])
-        self.rows = {}
-        self.overlap = False  # one entry's records overlap: OR them
-
-    def add(self, other: "_Writes", row: int, mask: int) -> None:
-        for mine, theirs in ((self.plane, other.plane), (self.lit, other.lit),
-                             (self.const, other.const)):
-            mine[0].extend(theirs[0])
-            mine[1].extend(theirs[1])
-        self.rows[row] = self.rows.get(row, 0) | mask
-        self.overlap |= other.overlap
-
-
-def _entry(wl: list, w: int, q: int, row: int, n_u: int, n_w: int,
-           lit_rows: int):
-    """One entry's bytes: (writes, output row, mask of the row's bytes)."""
-    wr = _Writes()
-    n = min(n_u + n_w, max(0, (len(wl) - q) // 2))  # records past: len 0
-    out_row = w * WIN_ROWS + row
-    mask = 0
-    for j in range(n):
-        w0, w1 = wl[q + 2 * j], wl[q + 2 * j + 1]
-        off = (w0 >> 10) & 511
-        cnt = min(w0 & 1023, ROW_BYTES - off)
-        if not cnt:
-            continue
-        m = ((1 << cnt) - 1) << off
-        wr.overlap |= bool(mask & m)
-        mask |= m
-        dst = range(out_row * ROW_BYTES + off, out_row * ROW_BYTES + off + cnt)
-        a = w1 & 0x0FFFFFFF
-        srow, col = a >> 9, a & 511
-        src = None
-        if w1 >> 31:
-            wr.const[0].extend(dst)
-            wr.const[1].extend([w1 & 0xFF] * cnt)
-            continue
-        if j < n_u:  # the U plane: [tail of window w - 1 | literal plane]
-            if srow < TAIL_ROWS:
-                if w:
-                    src = wr.plane, w * WIN_ROWS - TAIL_ROWS + srow
-            elif srow - TAIL_ROWS < lit_rows:
-                src = wr.lit, srow - TAIL_ROWS
-        elif srow < WIN_ROWS:  # a row of this window
-            src = wr.plane, w * WIN_ROWS + srow
-        if src is None:
-            wr.const[0].extend(dst)
-            wr.const[1].extend([0] * cnt)
-            continue
-        (dsts, srcs), s0 = src[0], src[1] * ROW_BYTES
-        head = min(cnt, ROW_BYTES - col)  # the source wraps inside its row
-        dsts.extend(dst)
-        srcs.extend(range(s0 + col, s0 + col + head))
-        srcs.extend(range(s0, s0 + cnt - head))
-    return wr, out_row, mask
-
-
-_BITS = torch.arange(8, dtype=torch.int64)
-
-
-def _flush(plane: torch.Tensor, lit: torch.Tensor, wr: _Writes) -> None:
-    """Gather every byte of ``wr``, then write them."""
-    dst, val = [], []
-    for (d, s), source in ((wr.plane, plane), (wr.lit, lit)):
-        if d:
-            dst.append(torch.tensor(d))
-            val.append(source[torch.tensor(s)])
-    if wr.const[0]:
-        dst.append(torch.tensor(wr.const[0]))
-        val.append(torch.tensor(wr.const[1], dtype=torch.uint8))
-    if not dst:
-        return
-    dst, val = torch.cat(dst), torch.cat(val)
-    if not wr.overlap:
-        plane[dst] = val
-        return
-    addr, inv = torch.unique(dst, return_inverse=True)
-    bits = (val.to(torch.int64)[:, None] >> _BITS) & 1
-    ored = torch.zeros((addr.numel(), 8), dtype=torch.int64).scatter_reduce_(
-        0, inv[:, None].expand(-1, 8), bits, "amax")
-    plane[addr] = (ored << _BITS).sum(1).to(torch.uint8)
-
-
 def _decode_member(plane, lit, wl, entries):
-    """Apply one member's entries in stream order to its flat output. The
-    writes of consecutive entries are gathered and written together, up to
-    an entry with W records (it reads what the entries before it wrote),
-    one that writes a byte the batch writes, or the next window (whose
-    tail rows are this window's)."""
-    lit_rows = lit.numel() // ROW_BYTES
-    batch, win = _Writes(), 0
+    """Apply one member's entries in stream order to its output plane
+    (out_rows, 512) uint8. Each entry gathers its records' bytes from the
+    planes as they stand, then writes the bytes they cover."""
+    lit_rows = lit.shape[0]
+    zero_row = torch.zeros(ROW_BYTES, dtype=torch.uint8)
     for w, q, row, n_u, n_w in entries:
         if row >= WIN_ROWS:  # past the window: writes nothing
             continue
-        wr, out_row, mask = _entry(wl, w, q, row, n_u, n_w, lit_rows)
-        if w != win or n_w or batch.rows.get(out_row, 0) & mask:
-            _flush(plane, lit, batch)
-            batch, win = _Writes(), w
-        batch.add(wr, out_row, mask)
-    _flush(plane, lit, batch)
+        acc = torch.zeros(ROW_BYTES, dtype=torch.uint8)
+        spans = []  # the row bytes [lo, hi) the records cover
+        n = min(n_u + n_w, max(0, (len(wl) - q) // 2))  # records past: len 0
+        for j in range(n):
+            w0, w1 = wl[q + 2 * j], wl[q + 2 * j + 1]
+            off = (w0 >> 10) & 511
+            cnt = min(w0 & 1023, ROW_BYTES - off)
+            if not cnt:
+                continue
+            if spans and spans[-1][1] == off:
+                spans[-1][1] = off + cnt
+            else:
+                spans.append([off, off + cnt])
+            if w1 >> 31:  # a fill
+                acc[off:off + cnt] |= w1 & 0xFF
+                continue
+            a = w1 & 0x0FFFFFFF
+            srow, col = a >> 9, a & 511
+            src = zero_row  # a source past its plane reads zeros
+            if j < n_u:  # the U plane: [tail of window w - 1 | literal plane]
+                if srow < TAIL_ROWS:
+                    if w:
+                        src = plane[w * WIN_ROWS - TAIL_ROWS + srow]
+                elif srow - TAIL_ROWS < lit_rows:
+                    src = lit[srow - TAIL_ROWS]
+            elif srow < WIN_ROWS:  # a row of this window
+                src = plane[w * WIN_ROWS + srow]
+            head = min(cnt, ROW_BYTES - col)  # the source wraps in its row
+            acc[off:off + head] |= src[col:col + head]
+            if head < cnt:
+                acc[off + head:off + cnt] |= src[:cnt - head]
+        dst = plane[w * WIN_ROWS + row]
+        for lo, hi in spans:
+            dst[lo:hi] = acc[lo:hi]
 
 
 def _decode_plain(lit_words, rec_words, meta, abi, nblk, out_rows, max_win):
     B = lit_words.shape[0]
-    out = torch.zeros((B, out_rows * ROW_BYTES), dtype=torch.uint8)
-    lit_bytes = lit_words.contiguous().view(torch.uint8).reshape(B, -1)
+    out = torch.zeros((B, out_rows, ROW_BYTES), dtype=torch.uint8)
+    lit_bytes = lit_words.contiguous().view(torch.uint8).reshape(
+        B, -1, ROW_BYTES)
     for g in range(B // nblk):
         wl = (rec_words[g].reshape(-1).to(torch.int64) & 0xFFFFFFFF).tolist()
         m = (meta[g].to(torch.int64) & 0xFFFFFFFF).tolist()
@@ -451,14 +404,18 @@ def prep_batchn(payloads_ext, nblk: int, map_fn=map,
             else pack_batch(preps, "bulkn", nblk, map_fn))
 
 
-def decode_bulk_block(payload: bytes, ext: bool, device="cpu",
+def decode_bulk_block(payload: bytes, ext: bool, device=None,
                       dictionary: bytes = None):
-    """Single-block helper: payload -> decoded bytes on ``device``, or None
-    when the resolver declines it. With ``dictionary`` the resolver works
-    in the dict-extended output space (a third window is possible)."""
+    """Single-block helper: payload -> decoded bytes, or None when the
+    resolver declines it. It decodes on the card unless ``device`` names
+    another (``mesh.block_devices``: no GPU raises; ``"cpu"`` runs the
+    plain version). With ``dictionary`` the resolver works in the
+    dict-extended output space (a third window is possible)."""
+    from ..parallel import mesh
     from ..runtime import native
     from .decode_tokens import planes_to_torch
 
+    dev = mesh.block_devices(device)[0]
     r = native.bulk_prep(payload, ext, dictionary)
     if r is None:
         return None
@@ -467,7 +424,7 @@ def decode_bulk_block(payload: bytes, ext: bool, device="cpu",
     out = decode_bulk_batch(
         *planes_to_torch(pack_lit_words(lit, rows_for_bytes(len(lit)))[None],
                          pack_rec_words(rec, rows_for_bytes(4 * len(rec)))
-                         [None], meta[None], device=device),
+                         [None], meta[None], device=dev),
         out_rows=3 * WIN_ROWS if base else OUT_ROWS,
         max_win=3 if base else MAX_WIN)
     size = int(meta[0])

@@ -174,11 +174,7 @@ def _bulk_window(stream, table_window, device, pool, dictionary=None, *,
     kw = {"out_rows": 3 * DBK.WIN_ROWS if base else DK.OUT_ROWS,
           "max_win": 3 if base else DBK.MAX_WIN}
     planes = planes_to_torch(lit, rec, meta, device=device)
-    if abi == "bulk":
-        return DBK.decode_bulk_batch(*planes, **kw), base
-    if abi == "bulk2":
-        return DBK.decode_bulk2_batch(*planes, **kw), base
-    return DBK.decode_bulkn_batch(*planes, nblk=nblk, **kw), base
+    return DBK.decode_bulk(abi, nblk, *planes, **kw), base
 
 
 def _stream_window(stream, table_window, device, pool, dictionary=None):

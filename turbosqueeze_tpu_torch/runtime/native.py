@@ -65,41 +65,45 @@ def _current() -> bool:
     return LIB_PATH.stat().st_mtime >= newest
 
 
+def compile_core(dst: Path) -> None:
+    """Compile ``csrc`` with the Makefile's flags and publish the library
+    at ``dst`` by an atomic rename. The caller holds the build lock.
+    Raises RuntimeError with the compiler's output when a step fails."""
+    tag = f"{os.getpid()}.tmp"
+    objs = [dst.with_name(f"{Path(s).stem}.{tag}.o") for s in SOURCES]
+    try:
+        # one compiler per source, all at once
+        procs = [subprocess.Popen(
+            [CXX, *CXXFLAGS, "-c", str(CSRC / s), "-o", str(o)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(SOURCES, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        errs = [f"{s} ({p.returncode}):\n{out}"
+                for s, p, out in zip(SOURCES, procs, outs) if p.returncode]
+        if errs:
+            raise RuntimeError("native core build failed:\n" + "\n".join(errs))
+        tmp = dst.with_name(f"{dst.name}.{tag}")
+        r = subprocess.run([CXX, *CXXFLAGS, "-shared", "-o", str(tmp),
+                            *map(str, objs)], capture_output=True, text=True)
+        if r.returncode:
+            raise RuntimeError(f"native core link failed ({r.returncode}):\n"
+                               f"{r.stdout}{r.stderr}")
+        os.replace(tmp, dst)  # atomic: never a partial library
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+
+
 def build(force: bool = False) -> Path:
     """Build the core if it is missing or older than a source (always,
-    with ``force``). Returns the library's path; raises RuntimeError with
-    the compiler's output when a step fails."""
+    with ``force``), under an exclusive file lock. Returns the library's
+    path; raises RuntimeError with the compiler's output when a step
+    fails."""
     LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
     with open(LIB_PATH.parent / "build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
-        if not force and _current():
-            return LIB_PATH
-        tag = f"{os.getpid()}.tmp"
-        objs = [LIB_PATH.with_name(f"{Path(s).stem}.{tag}.o")
-                for s in SOURCES]
-        try:
-            # one compiler per source, all at once
-            procs = [subprocess.Popen(
-                [CXX, *CXXFLAGS, "-c", str(CSRC / s), "-o", str(o)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                for s, o in zip(SOURCES, objs)]
-            outs = [p.communicate()[0] for p in procs]
-            errs = [f"{s} ({p.returncode}):\n{out}"
-                    for s, p, out in zip(SOURCES, procs, outs) if p.returncode]
-            if errs:
-                raise RuntimeError("native core build failed:\n"
-                                   + "\n".join(errs))
-            tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{tag}")
-            r = subprocess.run([CXX, *CXXFLAGS, "-shared", "-o", str(tmp),
-                                *map(str, objs)], capture_output=True,
-                               text=True)
-            if r.returncode:
-                raise RuntimeError(f"native core link failed ({r.returncode})"
-                                   f":\n{r.stdout}{r.stderr}")
-            os.replace(tmp, LIB_PATH)  # atomic: never a partial library
-        finally:
-            for o in objs:
-                o.unlink(missing_ok=True)
+        if force or not _current():
+            compile_core(LIB_PATH)
     return LIB_PATH
 
 
