@@ -10,7 +10,11 @@ decode (``pipeline.decompress(stream, impl="pallas")``,
 five hand-written CUDA kernels: the gang-stream decoder, the raw-payload
 stream decoder, the token emitter (two matchers: the upstream's hash table
 at level 0, phase-A candidates at level 1), the token-chunk decoder and the
-bulk decoder (three stream ABIs, one wrapper each). Phases:
+bulk decoder (three stream ABIs, one wrapper each). Compress also runs
+with the two other level-1 emitters, ``compress(emit_impl="bulk"|"flat")``:
+the decide kernel and the assemble pass (the bulk kernel's assemble
+entry), and the flat decide kernel with the sort layout in torch ops.
+Phases:
 
   0. the card; rebuild the port's native host core and build the CUDA
      kernels, at once;
@@ -45,7 +49,18 @@ bulk decoder (three stream ABIs, one wrapper each). Phases:
      timed); phase 3's containers through ``impl="bulk"``,
      ``"bulk2"`` and ``"bulkn"``, against the input and the native decoder,
      timed with the layers apart; and phase 7's dictionary container
-     through the three routes.
+     through the three routes;
+  9. the two other level-1 emitters: the decide kernel, the assemble pass
+     (the bulk kernel's assemble entry) and the flat decide kernel against
+     their plain versions, word for word over their whole planes (phase
+     5's mixed blocks and a dense 1-literal/1-match block, ext on and off,
+     a dictionary base, garbage planes, one full 4 MiB block each, timed),
+     their payloads against the native core; then phase 3's 256 MiB
+     compressed through ``compress(emit_impl="bulk")`` and ``"flat"`` at
+     level 1, byte-identical to ``native.compress``, timed with the layers
+     apart and the routes' peak device memory, and 64 MiB of it with a
+     33 KB dictionary through both, byte-identical to
+     ``native.compress_dict``.
 
 Every kernel is held against its plain version at zero tolerance over the
 bytes the format defines (each block's first ``size`` bytes, or each
@@ -91,22 +106,15 @@ KERNELS = {  # name -> (source in the port, the TPU kernel it replaces)
                      "turbosqueeze_tpu/kernels/decode_bulk.py:316"),
     "decode_bulkn": ("turbosqueeze_tpu_torch/kernels/csrc/decode_bulk.cu",
                      "turbosqueeze_tpu/kernels/decode_bulk.py:422"),
+    "encode_decide": ("turbosqueeze_tpu_torch/kernels/csrc/encode_bulk.cu",
+                      "turbosqueeze_tpu/kernels/encode_bulk.py:85"),
+    "encode_assemble": ("turbosqueeze_tpu_torch/kernels/csrc/decode_bulk.cu",
+                        "turbosqueeze_tpu/kernels/encode_bulk.py:607"),
+    "encode_flat_decide": (
+        "turbosqueeze_tpu_torch/kernels/csrc/encode_flat.cu",
+        "turbosqueeze_tpu/kernels/encode_flat.py:296"),
 }
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM5 80 GB: 3.35 TB/s
-# The TPU kernels still to port: the bytes one full 4 MiB block's planes
-# take in and out of each, from their wrappers' shapes (512-byte rows,
-# 32-byte meta words): turbosqueeze_tpu/kernels/encode_bulk.py (input
-# IN_ROWS 8336, candidates and next_valid CAND_ROWS 33320 each, side
-# SIDE_ROWS 8192, records REC_ROWS 12288, payload OUT_ROWS_BULK 12288) and
-# encode_flat.py (descriptors DESC_ROWS 16384).
-TO_PORT_BYTES = {
-    "turbosqueeze_tpu/kernels/encode_bulk.py:85 _decide_kernel":
-        (8336 + 2 * 33320 + 8192 + 12288) * 512 + 2 * 32,
-    "turbosqueeze_tpu/kernels/encode_bulk.py:607 _assemble_kernel":
-        (8336 + 8192 + 12288 + 12288) * 512 + 32,
-    "turbosqueeze_tpu/kernels/encode_flat.py:296 _flat_decide_kernel":
-        (8336 + 2 * 33320 + 16384) * 512 + 2 * 32,
-}
 
 
 class SmokeFailure(RuntimeError):
@@ -118,9 +126,13 @@ def check(cond, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+_T0 = time.perf_counter()
+
+
 def say(phase: str, **kv) -> None:
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
-          flush=True)
+    """One result line, stamped with the seconds since the script began."""
+    print(f"[{phase} t={time.perf_counter() - _T0:.0f}s] "
+          + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
 
 
 def _bytes_of(words, b: int, lo: int, n: int) -> bytes:
@@ -353,12 +365,17 @@ def _main_path(counts, fn):
     from turbosqueeze_tpu_torch.kernels import decode_gang as DG
     from turbosqueeze_tpu_torch.kernels import decode_stream as DS
     from turbosqueeze_tpu_torch.kernels import decode_tokens as DK
+    from turbosqueeze_tpu_torch.kernels import encode_bulk as EB
     from turbosqueeze_tpu_torch.kernels import encode_emit as EE
+    from turbosqueeze_tpu_torch.kernels import encode_flat as EF
 
-    DG.launches = DS.launches = DK.launches = 0
-    EE.launches.update(dict.fromkeys(EE.launches, 0))
-    DB.launches.update(dict.fromkeys(DB.launches, 0))
+    DG.launches = DS.launches = DK.launches = EF.launches = 0
+    for launches in (EE.launches, DB.launches, EB.launches):
+        launches.update(dict.fromkeys(launches, 0))
     r = fn()
+    counts["encode_decide"] += EB.launches["decide"]
+    counts["encode_assemble"] += EB.launches["assemble"]
+    counts["encode_flat_decide"] += EF.launches
     counts["decode_gang"] += DG.launches
     counts["decode_stream"] += DS.launches
     counts["decode_tokens"] += DK.launches
@@ -1037,6 +1054,8 @@ def phase8(errs, counts, timing, data, streams):
     from turbosqueeze_tpu_torch.utils.corpus import synthetic_text
 
     datas, levels = _mixed_blocks()
+    # the plain version walks entries in Python: cut the one-window blocks
+    datas = [d[:300_000] for d in datas[:-1]] + datas[-1:]
     exts = (True, False, True, False, True)
     preps = DB.resolve_blocks([(native.compress(x, e, level=lv)[19:], e)
                                for x, lv, e in zip(datas, levels, exts)])
@@ -1169,6 +1188,319 @@ def _bulk_layers(stream, impl, mb):
         lit_bytes=sum(_nbytes(d[0]) for d in dev))
 
 
+def _byte_err(got: torch.Tensor, ref: torch.Tensor) -> int:
+    """The largest byte difference of two int32 planes."""
+    if not ref.numel():
+        return 0
+    g, r = (t.contiguous().view(torch.uint8).to(torch.int16)
+            for t in (got.cpu(), ref))
+    return int((g - r).abs().max())
+
+
+def _encode_compare(errs, planes, ext, what):
+    """The decide, assemble and flat decide kernels on the card's copy of
+    ``planes`` (input, candidates, meta) against their plain versions on
+    the host's: every plane and osz/stats row word for word. Returns the
+    card's (decide outputs, payload words, descriptors, stats, skip
+    table) and the plain versions' milliseconds."""
+    from turbosqueeze_tpu_torch.kernels import encode_bulk as EB
+    from turbosqueeze_tpu_torch.kernels import encode_flat as EF
+
+    host = [p.cpu() for p in planes]
+    dev = [p.cuda() for p in planes]
+    hnv, dnv = EB.next_valid(host[1]), EB.next_valid(dev[1])
+    check(torch.equal(dnv.cpu(), hnv), f"{what}: next_valid card != host")
+    got = EB.decide_batch(dev[0], dev[1], dnv, dev[2], ext=ext)
+    pay = EB.assemble_batch(dev[0], *got)
+    desc, stats = EF.flat_decide_batch(dev[0], dev[1], dnv, dev[2], ext=ext)
+    torch.cuda.synchronize()
+    plain_ms = {}
+    t0 = time.perf_counter()
+    ref = EB.decide_batch(host[0], host[1], hnv, host[2], ext=ext)
+    plain_ms["encode_decide"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    rpay = EB.assemble_batch(host[0], *ref)
+    plain_ms["encode_assemble"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    rflat = EF.flat_decide_batch(host[0], host[1], hnv, host[2], ext=ext)
+    plain_ms["encode_flat_decide"] = (time.perf_counter() - t0) * 1e3
+    for name, gs, rs in (("encode_decide", got, ref),
+                         ("encode_assemble", [pay], [rpay]),
+                         ("encode_flat_decide", (desc, stats), rflat)):
+        for g, r in zip(gs, rs):
+            errs[name] = max(errs[name], _byte_err(g, r))
+            check(torch.equal(g.cpu(), r), f"{what}: {name} kernel != plain")
+    return (got, pay, desc, stats, dnv), plain_ms
+
+
+def _encode_payloads(planes, out, ext):
+    """Each block's payload from the two-pass emitter's words and from the
+    flat emitter's layout of the card's descriptors; the two must agree
+    and neither may flag a block."""
+    from turbosqueeze_tpu_torch.kernels import encode_emit as EE
+    from turbosqueeze_tpu_torch.kernels import encode_flat as EF
+
+    (side, rec, osz), pay, desc, stats, _ = out
+    words, fosz = EF.layout_live(desc, stats, planes[0].cuda(),
+                                 planes[2].cuda(), ext=ext)
+    osz, fosz = osz.cpu(), fosz.cpu()
+    check(not osz[:, 2].any() and not fosz[:, 2].any(),
+          f"an emitter flagged a block: {osz[:, 2].tolist()} "
+          f"{fosz[:, 2].tolist()}")
+    check(torch.equal(osz[:, 0], fosz[:, 0]), "bulk and flat sizes differ")
+    out = []
+    for b in range(osz.shape[0]):
+        p = EE.payload_from_words(pay[b], int(osz[b, 0]))
+        check(p == EE.payload_from_words(words[b], int(fosz[b, 0])),
+              f"block {b}: bulk payload != flat payload")
+        out.append(p)
+    return out
+
+
+def _garbage_encode(errs):
+    """Garbage candidates and skip tables, a meta past the planes and a
+    descriptor plane too small: every kernel equals its plain version."""
+    from turbosqueeze_tpu_torch.kernels import encode_bulk as EB
+    from turbosqueeze_tpu_torch.kernels import encode_emit as EE
+    from turbosqueeze_tpu_torch.kernels import encode_flat as EF
+    from turbosqueeze_tpu_torch.runtime import native
+    from turbosqueeze_tpu_torch.utils.corpus import synthetic_text
+
+    rng = np.random.default_rng(12)
+    blocks = [synthetic_text(200_000, seed=121), b"xyzxyzxyz" * 500,
+              b"q" * 100]
+    iw = torch.from_numpy(np.stack([EE.pack_input_words(b) for b in blocks]))
+    cw = torch.from_numpy(np.stack([EE.pack_cand_words(
+        native.build_candidates(b)) for b in blocks]))
+    cw[0] = torch.from_numpy(rng.integers(-1, 400_000, cw[0].numel(),
+                                          dtype=np.int32)).view(cw[0].shape)
+    cw[1].view(-1)[100:300] = torch.arange(100, 300, dtype=torch.int32)
+    meta = torch.from_numpy(EE.pack_meta([len(b) for b in blocks]))
+    meta[2, 0] = (1 << 22) + 1
+    nv = EB.next_valid(cw)
+    nv[1].view(-1)[:3000] = torch.from_numpy(
+        rng.integers(-5, 4000, 3000, dtype=np.int32))
+    planes = [iw, cw, nv, meta]
+    dev = [p.cuda() for p in planes]
+    got = EB.decide_batch(*dev)
+    ref = EB.decide_batch(*planes)
+    runs = [("encode_decide", got, ref),
+            ("encode_assemble", [EB.assemble_batch(dev[0], *got)],
+             [EB.assemble_batch(iw, *ref)])]
+    runs += [("encode_flat_decide", EF.flat_decide_batch(*dev, desc_rows=r),
+              EF.flat_decide_batch(*planes, desc_rows=r)) for r in (8, 64)]
+    for name, gs, rs in runs:
+        for g, r in zip(gs, rs):
+            errs[name] = max(errs[name], _byte_err(g, r))
+            check(torch.equal(g.cpu(), r), f"garbage planes: {name} kernel "
+                  "!= plain")
+    check(ref[2][2, :3].tolist() == [-1, 0, 1], "a meta past the planes: "
+          f"osz {ref[2][2].tolist()}")
+
+
+def _encode_moved(meta, osz, desc, stats) -> dict:
+    """The bytes each new kernel must move for this batch, from what its
+    run wrote rather than from the planes' capacity. A decide pass reads
+    the meta row and each block's input bytes once, and at least one
+    candidate word at each stop of the parse (each match and each literal
+    run) plus one skip-table word per literal run; the two-pass decide
+    writes the side bytes (the payload less its literal bytes), the stream
+    up to its last window's end and the osz row, the flat one a descriptor
+    per symbol and the stats row. The assemble pass reads the osz row, the
+    stream and each payload byte's source once and writes the payload."""
+    moved = dict.fromkeys(("encode_decide", "encode_assemble",
+                           "encode_flat_decide"), 0)
+    meta, osz, stats = meta.cpu(), osz.cpu(), stats.cpu()
+    for b in range(meta.shape[0]):
+        size, base = meta[b, :2].tolist()
+        n = int(stats[b, 0])
+        d = desc[b].reshape(-1)[:n].cpu()
+        lit = d < 0
+        lit_bytes = int((((d >> 25) & 15) + 1)[lit].sum())
+        runs = int(lit[:1].sum() + (lit[1:] & ~lit[:-1]).sum())
+        stops = int((~lit).sum()) + runs
+        reads = 32 + base + size + 4 * stops + 4 * runs
+        payload, stream = int(osz[b, 0]), 4 * int(osz[b, 7])
+        moved["encode_decide"] += reads + payload - lit_bytes + stream + 32
+        moved["encode_assemble"] += 32 + stream + 2 * payload
+        moved["encode_flat_decide"] += reads + 4 * n + 32
+    return moved
+
+
+def _encode_full_block(errs, timing):
+    """One launch of each new kernel on one full 4 MiB text block, B = 1,
+    at the main path's plane shapes: timed, held to its plain version and
+    to the native core."""
+    from turbosqueeze_tpu_torch.kernels import encode_bulk as EB
+    from turbosqueeze_tpu_torch.kernels import encode_flat as EF
+    from turbosqueeze_tpu_torch.runtime import native
+
+    full = _e2e_input(2)[4 * MiB:]
+    planes = _emit_planes([full])
+    out, plain_ms = _encode_compare(errs, planes, True, "full block")
+    (side, rec, osz), pay, desc, stats, nv = out
+    got = _encode_payloads(planes, out, True)
+    check(got[0] == native.encode_block_candidates(
+        full, native.build_candidates(full), True),
+        "full block: payload != native")
+    iw, cw, meta = (p.cuda() for p in planes)
+    runs = {
+        "encode_decide": lambda: EB.decide_batch(iw, cw, nv, meta),
+        "encode_assemble": lambda: EB.assemble_batch(iw, side, rec, osz),
+        "encode_flat_decide": lambda: EF.flat_decide_batch(iw, cw, nv, meta),
+    }
+    moved = _encode_moved(meta, osz, desc, stats)
+    for name, fn in runs.items():
+        ms = _cuda_ms(fn, 3)
+        timing[name] = (ms, plain_ms[name], moved[name])
+        say("phase9", kernel=name, full_block=True, exact=True,
+            kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms[name]:.1f}",
+            bytes=moved[name],
+            bound_ms=f"{moved[name] / HBM_BYTES_PER_MS:.6f}")
+    say("phase9", full_block=True, payload=len(got[0]),
+        n_sym=int(stats[0, 0]), records=int(osz[0, 7]) // 2,
+        next_valid_ms=f"{_cuda_ms(lambda: EB.next_valid(cw), 3):.4f}",
+        layout_ms=f"{_cuda_ms(lambda: EF.layout_live(desc, stats, iw, meta), 3):.4f}")
+
+
+def _emitter_layers(data, emit_impl):
+    """One level-1 route's layers on the windows of its compress, each on
+    the device clock: upload, phase A, next_valid, decide, assemble or
+    layout, download of the live rows."""
+    from turbosqueeze_tpu_torch.format import split_blocks
+    from turbosqueeze_tpu_torch.kernels import encode_bulk as EB
+    from turbosqueeze_tpu_torch.kernels import encode_flat as EF
+    from turbosqueeze_tpu_torch.parallel import pipeline
+
+    blocks = split_blocks(data)
+    layers = {k: [] for k in ("upload", "phase_a", "next_valid", "decide",
+                              "assemble" if emit_impl == "bulk" else "layout",
+                              "download")}
+    for lo in range(0, len(blocks), pipeline.WINDOW_BLOCKS):
+        win = blocks[lo:lo + pipeline.WINDOW_BLOCKS]
+        t0 = time.perf_counter()
+        batch = pipeline._upload_window(win, None, torch.device("cuda"))
+        torch.cuda.synchronize()
+        layers["upload"].append((time.perf_counter() - t0) * 1e3)
+        layers["phase_a"].append(_cuda_ms(
+            lambda: pipeline._phase_a(batch, win, 0), 1))
+        cands = pipeline._phase_a(batch, win, 0)
+        iw, cw, meta = pipeline.emit_planes(batch, cands, win, 0)
+        layers["next_valid"].append(_cuda_ms(lambda: EB.next_valid(cw), 1))
+        nv = EB.next_valid(cw)
+        if emit_impl == "bulk":
+            layers["decide"].append(_cuda_ms(
+                lambda: EB.decide_batch(iw, cw, nv, meta), 1))
+            side, rec, osz = EB.decide_batch(iw, cw, nv, meta)
+            layers["assemble"].append(_cuda_ms(
+                lambda: EB.assemble_batch(iw, side, rec, osz), 1))
+            words = EB.assemble_batch(iw, side, rec, osz)
+        else:
+            layers["decide"].append(_cuda_ms(
+                lambda: EF.flat_decide_batch(iw, cw, nv, meta), 1))
+            desc, stats = EF.flat_decide_batch(iw, cw, nv, meta)
+            layers["layout"].append(_cuda_ms(
+                lambda: EF.layout_live(desc, stats, iw, meta), 1))
+            words, osz = EF.layout_live(desc, stats, iw, meta)
+        rows = -(-int(osz[:, 0].max()) // 512)
+        pinned = torch.empty((len(win), rows, 128), dtype=torch.int32,
+                             pin_memory=True)
+        layers["download"].append(_cuda_ms(lambda: pinned.copy_(
+            words[:, :rows], non_blocking=True), 1))
+        del batch, cands, iw, cw, nv, words
+    return {k: "/".join(f"{t:.2f}" for t in v) for k, v in layers.items()}
+
+
+def phase9(errs, counts, timing, data):
+    """The two-pass and flat emitters: their kernels against their plain
+    versions, then ``compress(emit_impl="bulk"|"flat")`` end to end."""
+    from turbosqueeze_tpu_torch.format import iter_container
+    from turbosqueeze_tpu_torch.runtime import native
+    from turbosqueeze_tpu_torch.utils.corpus import (synthetic_binary,
+                                                     synthetic_text)
+    from turbosqueeze_tpu_torch.parallel import pipeline
+
+    rng = np.random.default_rng(3)
+    alt = b"".join(rng.integers(0, 256, 3, dtype=np.uint8).tobytes()
+                   + b"QWERTYUI" for _ in range(20_000))
+    blocks = [synthetic_text(700_000, seed=41),
+              synthetic_binary(500_000, seed=43), bytes(300_000),
+              np.random.default_rng(7).bytes(4 * MiB), alt, b"abcab", b""]
+    d = synthetic_text(33_000, seed=113)
+    dict_blocks = [synthetic_text(150_000, seed=114), bytes(20_000)]
+    for dictionary, blks in ((b"", blocks), (d, dict_blocks)):
+        for ext in (True, False):
+            if not ext and not dictionary:
+                # ext moves no literal: the random block once is enough
+                blks = blocks[:3] + blocks[4:]
+            planes = _emit_planes(blks, dictionary=dictionary)
+            what = f"ext={ext} dictionary={len(dictionary)}"
+            out, plain_ms = _encode_compare(errs, planes, ext, what)
+            got = _encode_payloads(planes, out, ext)
+            for b, blk in enumerate(blks):
+                if not blk:
+                    check(len(got[b]) == 5, "empty block: not 5 bytes")
+                    continue
+                cand = native.build_candidates(dictionary + blk)
+                want = (native.encode_block_dict(blk, dictionary, cand, ext)
+                        if dictionary
+                        else native.encode_block_candidates(blk, cand, ext))
+                check(got[b] == want, f"{what} block {b}: != native")
+            say("phase9", ext=ext, dictionary=len(dictionary),
+                blocks=len(blks), bytes=sum(map(len, blks)), exact=True,
+                **{f"{k}_plain_ms": f"{v:.1f}" for k, v in plain_ms.items()})
+    _garbage_encode(errs)
+    say("phase9", garbage_planes="no fault", exact=True)
+    _encode_full_block(errs, timing)
+
+    # the routes end to end on phase 3's 256 MiB, level 1
+    mb = len(data) / 1e6
+    want = native.compress(data, True, level=1)
+    names = {"bulk": ("encode_decide", "encode_assemble"),
+             "flat": ("encode_flat_decide",)}
+    for emit_impl, kernels in names.items():
+        before = dict(counts)
+        over = pipeline.overflow_blocks
+        e2e = []
+        for k in range(4):  # a cold run, then three warm ones
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            got = _main_path(counts, lambda: pipeline.compress(
+                data, level=1, emit_impl=emit_impl))
+            e2e.append((time.perf_counter() - t0) * 1e3)
+            check(got == want, f"{emit_impl}: port compress != native")
+        peak = torch.cuda.max_memory_allocated()
+        check(all(counts[k] > before[k] for k in kernels),
+              f"{emit_impl}: a kernel of {kernels} never launched")
+        say("phase9", emit_impl=emit_impl, level=1, input_mb=f"{mb:.1f}",
+            exact=True,
+            compress_MBps=f"{mb / statistics.median(e2e[1:]) * 1e3:.1f}",
+            e2e_ms="/".join(f"{t:.1f}" for t in e2e[1:]),
+            cold_ms=f"{e2e[0]:.1f}",
+            overflow_blocks=pipeline.overflow_blocks - over,
+            peak_device_GiB=f"{peak / 2**30:.2f}",
+            **_emitter_layers(data, emit_impl))
+
+    # 64 MiB of it with the 33 KB dictionary through both routes
+    part = data[:16 * 4 * MiB]
+    want = native.compress_dict(part, d, True)
+    check(native.decompress_dict(want, d) == part, "native dictionary "
+          "round trip")
+    for emit_impl, kernels in names.items():
+        before = dict(counts)
+        t0 = time.perf_counter()
+        got = _main_path(counts, lambda: pipeline.compress(
+            part, dictionary=d, emit_impl=emit_impl))
+        ms = (time.perf_counter() - t0) * 1e3
+        check(got == want, f"dictionary {emit_impl}: != native.compress_dict")
+        check(all(counts[k] > before[k] for k in kernels),
+              f"dictionary {emit_impl}: no launch")
+        say("phase9", dictionary=len(d), emit_impl=emit_impl,
+            input_mb=f"{len(part) / 1e6:.1f}", exact=True,
+            compress_MBps=f"{len(part) / 1e6 / ms * 1e3:.1f}",
+            blocks=sum(1 for _ in iter_container(got)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
@@ -1191,13 +1523,15 @@ def main() -> int:
     phase6(counts)
     phase7(errs, counts, timing, data, streams)
     phase8(errs, counts, timing, data, streams)
+    phase9(errs, counts, timing, data)
     check(all(counts.values()),
           f"a kernel of the main path never launched: {counts}")
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
     check(not loaded, f"the port loaded JAX: {loaded[:5]}")
-    # no single PyTorch call decodes an LZ stream or emits its tokens, so
-    # no kernel has a library yardstick; each one's work is bound by the
-    # bytes it reads and writes, far below the card's operation rates
+    # no single PyTorch call decodes an LZ stream, parses or emits its
+    # tokens, so no kernel has a library yardstick; each one's work is
+    # bound by the bytes it reads and writes, far below the card's
+    # operation rates
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": counts[k], "max_abs_err": errs[k],
                 "ms": round(timing[k][0], 4),
@@ -1205,9 +1539,6 @@ def main() -> int:
                 "bound_ms": round(timing[k][2] / HBM_BYTES_PER_MS, 6),
                 "bound_by": "bytes", "library_ms": None}
                for k, (src, rep) in KERNELS.items()]
-    for k, n in TO_PORT_BYTES.items():
-        say("to_port", kernel=k, full_block_bytes=n,
-            bound_ms=f"{n / HBM_BYTES_PER_MS:.6f}")
     say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -94,10 +94,62 @@ def test_empty_input(native):
     assert pipeline.compress(b"", device="cpu") == native.compress(b"")
 
 
+@pytest.mark.parametrize("with_dict", [False, True], ids=["plain", "dict"])
+@pytest.mark.parametrize("level", [0, 1, 2])
 @pytest.mark.parametrize("emit_impl", ["bulk", "flat"])
-def test_unported_emitters_raise(emit_impl):
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        pipeline.compress(b"abc" * 100, device="cpu", emit_impl=emit_impl)
+def test_emitters_match_native(native, data, emit_impl, level, with_dict):
+    """The two-pass and flat emitters through ``compress``: the native
+    core's containers at every level, with and without a dictionary (which
+    lifts the level to 1); the emitter runs only where the level-1 parse
+    does."""
+    from turbosqueeze_tpu_torch.kernels import encode_bulk as PEB
+    from turbosqueeze_tpu_torch.kernels import encode_flat as PEF
+
+    d = synthetic_text(33_000, seed=84) if with_dict else None
+    calls = []
+    real = {"bulk": PEB.emit_bulk_batch, "flat": PEF.flat_emit_batch}
+    mod = PEB if emit_impl == "bulk" else PEF
+    name = real[emit_impl].__name__
+    spy = lambda *a, **k: calls.append(1) or real[emit_impl](*a, **k)  # noqa
+    setattr(mod, name, spy)
+    try:
+        got = pipeline.compress(data, True, level=level, device="cpu",
+                                dictionary=d, emit_impl=emit_impl)
+    finally:
+        setattr(mod, name, real[emit_impl])
+    want = (native.compress_dict(data, d, True, level=max(level, 1)) if d
+            else native.compress(data, True, level=level))
+    assert got == want
+    assert len(calls) == (1 if level == 1 or (d and level < 2) else 0)
+
+
+@pytest.mark.parametrize("emit_impl", ["bulk", "flat"])
+def test_overflowed_blocks_take_the_host(native, monkeypatch, emit_impl):
+    """A block the emitter flags as overflowed is emitted on the host from
+    the device's candidates: the container is still the native core's,
+    and ``overflow_blocks`` counts the block."""
+    from turbosqueeze_tpu_torch.kernels import encode_bulk as PEB
+    from turbosqueeze_tpu_torch.kernels import encode_flat as PEF
+
+    data = synthetic_text((1 << 22) + 90_000, seed=90)
+    mod, name = ((PEB, "emit_bulk_batch") if emit_impl == "bulk"
+                 else (PEF, "flat_emit_batch"))
+    real = getattr(mod, name)
+
+    def flags_block_1(*a, **k):
+        words, osz = real(*a, **k)
+        osz[1, 0], osz[1, 2] = -1, 1  # the size is no use once flagged
+        return words, osz
+
+    monkeypatch.setattr(mod, name, flags_block_1)
+    before = pipeline.overflow_blocks
+    got = pipeline.compress(data, True, level=1, device="cpu",
+                            emit_impl=emit_impl)
+    assert got == native.compress(data, True, level=1)
+    assert pipeline.overflow_blocks == before + 1
+
+
+def test_unknown_emit_impl_raises():
     with pytest.raises(ValueError, match="emit_impl"):
         pipeline.compress(b"abc" * 100, device="cpu", emit_impl="tree")
 

@@ -18,7 +18,9 @@ from turbosqueeze_tpu_torch.kernels import decode_bulk as PB
 from turbosqueeze_tpu_torch.kernels import decode_gang as PG
 from turbosqueeze_tpu_torch.kernels import decode_stream as PS
 from turbosqueeze_tpu_torch.kernels import decode_tokens as PT
+from turbosqueeze_tpu_torch.kernels import encode_bulk as PEB
 from turbosqueeze_tpu_torch.kernels import encode_emit as PE
+from turbosqueeze_tpu_torch.kernels import encode_flat as PEF
 from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
 from turbosqueeze_tpu_torch.parallel import pipeline
 from turbosqueeze_tpu_torch.utils.corpus import (synthetic_binary,
@@ -410,3 +412,132 @@ def test_bulk_routes_match_native(native, impl):
                                   dictionary=dictionary)
         assert got == data
         assert sum(PB.launches.values()) == 1
+
+
+def _encode_planes(native, blocks, d=b""):
+    """Input, candidate and meta planes of a batch (numpy)."""
+    return [np.stack([PE.pack_input_words(d + b) for b in blocks]),
+            np.stack([PE.pack_cand_words(native.build_candidates(d + b))
+                      for b in blocks]),
+            PE.pack_meta([len(b) for b in blocks], len(d))]
+
+
+def _encode_blocks():
+    rng = np.random.default_rng(3)
+    alt = b"".join(rng.integers(0, 256, 3, dtype=np.uint8).tobytes()
+                   + b"QWERTYUI" for _ in range(1200))
+    return [make() for make, _ in _MIXED] + [alt, b"abcab", b""]
+
+
+def _want(native, blk, ext, d=b""):
+    cand = native.build_candidates(d + blk)
+    if d:
+        return native.encode_block_dict(blk, d, cand, ext)
+    return native.encode_block_candidates(blk, cand, ext)
+
+
+@pytest.mark.parametrize("ext", [True, False])
+def test_decide_and_assemble_kernels_match_plain(native, ext):
+    """The decide kernel's side plane, record stream and osz, and the
+    assemble kernel's payload planes, equal their plain versions word for
+    word; the payloads equal the native core's, with and without a
+    dictionary base."""
+    for d, blocks in ((b"", _encode_blocks()),
+                      (synthetic_text(33_000, seed=113),
+                       [synthetic_text(50_000, seed=114), bytes(3_000)])):
+        host = planes_to_torch(*_encode_planes(native, blocks, d),
+                               device="cpu")
+        host.insert(2, PEB.next_valid(host[1]))
+        dev = [t.cuda() for t in host]
+        before = dict(PEB.launches)
+        got = PEB.decide_batch(*dev, ext=ext)
+        pay = PEB.assemble_batch(dev[0], *got)
+        torch.cuda.synchronize()
+        assert PEB.launches == {k: n + 1 for k, n in before.items()}
+        ref = PEB.decide_batch(*host, ext=ext)
+        for g, r in zip(got, ref):
+            assert torch.equal(g.cpu(), r)
+        assert torch.equal(pay.cpu(), PEB.assemble_batch(host[0], *ref))
+        assert not ref[2][:, 2].any()
+        for k, b in enumerate(blocks):
+            payload = PE.payload_from_words(pay[k], int(ref[2][k, 0]))
+            if b:
+                assert payload == _want(native, b, ext, d), f"block {k}"
+
+
+@pytest.mark.parametrize("ext, nblk", [(True, 1), (False, 1), (True, 2)])
+def test_flat_decide_kernel_matches_plain(native, ext, nblk):
+    """The flat decide kernel's descriptors and stats equal its plain
+    version's; the flat emitter's payloads on the card equal the native
+    core's."""
+    blocks = _encode_blocks()[:-1]
+    host = planes_to_torch(*_encode_planes(native, blocks), device="cpu")
+    host.insert(2, PEB.next_valid(host[1]))
+    dev = [t.cuda() for t in host]
+    before = PEF.launches
+    desc, stats = PEF.flat_decide_batch(*dev, ext=ext, nblk=nblk)
+    torch.cuda.synchronize()
+    assert PEF.launches == before + 1
+    rdesc, rstats = PEF.flat_decide_batch(*host, ext=ext, nblk=nblk)
+    assert torch.equal(desc.cpu(), rdesc) and torch.equal(stats.cpu(), rstats)
+    words, osz = PEF.flat_emit_batch(dev[0], dev[1], dev[3], ext=ext,
+                                     nblk=nblk)
+    osz = osz.cpu()
+    assert not osz[:, 2].any()
+    for k, b in enumerate(blocks):
+        payload = PE.payload_from_words(words[k], int(osz[k, 0]))
+        assert payload == _want(native, b, ext), f"block {k}"
+
+
+def test_encode_kernels_garbage_planes_match_plain(native):
+    """Garbage candidates and skip tables, a meta past the planes and a
+    descriptor plane too small: the decide, assemble and flat decide
+    kernels stay inside their planes and equal their plain versions."""
+    rng = np.random.default_rng(9)
+    blocks = [synthetic_text(20_000, seed=45), b"xyzxyzxyz" * 50, b"q" * 100]
+    host = planes_to_torch(*_encode_planes(native, blocks), device="cpu")
+    host[1][0] = torch.from_numpy(rng.integers(
+        -1, 40_000, host[1][0].numel(), dtype=np.int32)).view(
+            host[1][0].shape)
+    host[1][1].view(-1)[100:200] = torch.arange(100, 200, dtype=torch.int32)
+    host[2][2, 0] = (1 << 22) + 1
+    host.insert(2, PEB.next_valid(host[1]))
+    host[2][1].view(-1)[:300] = torch.from_numpy(
+        rng.integers(-5, 400, 300, dtype=np.int32))
+    dev = [t.cuda() for t in host]
+    got = PEB.decide_batch(*dev)
+    ref = PEB.decide_batch(*host)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+    assert ref[2][2, :3].tolist() == [-1, 0, 1]
+    assert torch.equal(PEB.assemble_batch(dev[0], *got).cpu(),
+                       PEB.assemble_batch(host[0], *ref))
+    for rows in (8, PEF.DESC_ROWS):
+        got = PEF.flat_decide_batch(*dev, desc_rows=rows)
+        ref = PEF.flat_decide_batch(*host, desc_rows=rows)
+        for g, r in zip(got, ref):
+            assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.parametrize("emit_impl", ["bulk", "flat"])
+def test_emitter_routes_match_native(native, emit_impl):
+    """``compress(emit_impl=...)`` on the card: two full blocks and a
+    short one at level 1, and with a dictionary, equal to the native
+    core's containers; the route's kernels launched."""
+    import turbosqueeze_tpu_torch as tsq
+
+    data = b"".join(make() for make, _ in _MIXED) * 20 + b"tail" * 999
+    d = synthetic_text(33_000, seed=113)
+    for dictionary in (None, d):
+        PEB.launches.update(dict.fromkeys(PEB.launches, 0))
+        PEF.launches = 0
+        got = pipeline.compress(data, device="cuda", emit_impl=emit_impl,
+                                dictionary=dictionary)
+        want = (native.compress_dict(data, d, True) if dictionary
+                else native.compress(data, True, level=1))
+        assert got == want
+        if emit_impl == "bulk":
+            assert PEB.launches == {"decide": 1, "assemble": 1}
+        else:
+            assert PEF.launches == 1
+    assert tsq.decompress(got, backend="cuda", dictionary=d) == data

@@ -15,13 +15,17 @@ from turbosqueeze_tpu.kernels import decode_bulk as RB
 from turbosqueeze_tpu.kernels import decode_gang as RG
 from turbosqueeze_tpu.kernels import decode_stream as RS
 from turbosqueeze_tpu.kernels import decode_tokens as RT
+from turbosqueeze_tpu.kernels import encode_bulk as REB
 from turbosqueeze_tpu.kernels import encode_emit as RE
+from turbosqueeze_tpu.kernels import encode_flat as REF
 from turbosqueeze_tpu.parallel import pipeline as RP
 from turbosqueeze_tpu_torch.kernels import decode_bulk as PB
 from turbosqueeze_tpu_torch.kernels import decode_gang as PG
 from turbosqueeze_tpu_torch.kernels import decode_stream as PS
 from turbosqueeze_tpu_torch.kernels import decode_tokens as PT
+from turbosqueeze_tpu_torch.kernels import encode_bulk as PEB
 from turbosqueeze_tpu_torch.kernels import encode_emit as PE
+from turbosqueeze_tpu_torch.kernels import encode_flat as PEF
 from turbosqueeze_tpu_torch.parallel import mesh as PM
 from turbosqueeze_tpu_torch.parallel import pipeline as PP
 
@@ -48,7 +52,9 @@ import turbosqueeze_tpu_torch.kernels.decode_gang
 import turbosqueeze_tpu_torch.kernels.decode_stream
 import turbosqueeze_tpu_torch.kernels.decode_tokens
 import turbosqueeze_tpu_torch.kernels.decode_xla
+import turbosqueeze_tpu_torch.kernels.encode_bulk
 import turbosqueeze_tpu_torch.kernels.encode_emit
+import turbosqueeze_tpu_torch.kernels.encode_flat
 import turbosqueeze_tpu_torch.kernels.encode_xla
 import turbosqueeze_tpu_torch.parallel.pipeline as pipeline
 import turbosqueeze_tpu_torch.reference_codec
@@ -62,6 +68,12 @@ for backend in ("native", "oracle"):
     stream = tsq.compress(data, backend=backend)
     assert tsq.decompress(stream, backend=backend) == data
 stream = tsq.compress(data, backend="cuda", device="cpu", level=1)
+for emit_impl in ("bulk", "flat"):
+    assert pipeline.compress(data, device="cpu", emit_impl=emit_impl,
+                             dictionary=d) == tsq.compress(
+        data, backend="native", dictionary=d)
+    assert pipeline.compress(data, device="cpu",
+                             emit_impl=emit_impl) == stream
 for impl in ("gang", "bulk", "bulk2", "bulkn", "stream", "pallas", "xla"):
     assert pipeline.decompress(stream, device="cpu", impl=impl) == data
 stream = tsq.compress(data, backend="native", dictionary=d)
@@ -105,9 +117,12 @@ def test_no_source_imports_the_jax_package():
     (PG, RG, ("GANG_WORDS", "GMETA_WORDS")),
     (PS, RS, ("_WIN_ROWS",)),
     (PE, RE, ("IN_ROWS", "OUT_ROWS", "CAND_ROWS", "_DICT_ROWS")),
+    (PEB, REB, ("IN_BYTES", "SIDE_ROWS", "REC_ROWS", "OUT_WIN",
+                "OUT_ROWS_BULK", "U_IN", "U_SIDE", "_MAX_ENTRY_RECS")),
+    (PEF, REF, ("DESC_ROWS",)),
     (PP, RP, ("GANG_SRECS", "_DICT_PAD")),
 ], ids=["decode_tokens", "decode_bulk", "decode_gang", "decode_stream",
-        "encode_emit", "pipeline"])
+        "encode_emit", "encode_bulk", "encode_flat", "pipeline"])
 def test_redeclared_constants(port, ref, names):
     for n in names:
         assert getattr(port, n) == getattr(ref, n), n

@@ -139,10 +139,6 @@ def test_api_rejects_unported_routes(native):
     with pytest.raises(NotImplementedError):
         tsq.decompress(b"TSQX" + bytes(60), backend="cuda")
     with pytest.raises(NotImplementedError):
-        pipeline.compress(b"data", device="cpu", emit_impl="flat")
-    with pytest.raises(NotImplementedError):
-        pipeline.compress(b"data", device="cpu", emit_impl="bulk")
-    with pytest.raises(NotImplementedError):
         tsq.compress(b"data", backend="oracle", dictionary=b"dict")
     with pytest.raises(FormatError):
         tsq.decompress(b"not a tsq stream", backend="cuda")

@@ -15,7 +15,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("decode_bulk.cu", "decode_gang.cu", "decode_stream.cu",
-           "decode_tokens.cu", "encode_emit.cu")
+           "decode_tokens.cu", "encode_bulk.cu", "encode_emit.cu",
+           "encode_flat.cu")
+HEADERS = ("encode_parse.cuh",)  # included by the encode sources
 LIB_PATH = (Path(__file__).resolve().parents[2] / "build" / "cuda"
             / "libtsq_torch_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -38,7 +40,7 @@ def build() -> str:
     Returns the compiler's report (registers, spills per kernel), or ""
     when the library was already current."""
     srcs = [CSRC / s for s in SOURCES]
-    newest = max(s.stat().st_mtime for s in srcs)
+    newest = max(f.stat().st_mtime for f in srcs + [CSRC / h for h in HEADERS])
     if LIB_PATH.exists() and LIB_PATH.stat().st_mtime >= newest:
         return ""
     LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
@@ -82,6 +84,18 @@ def library() -> ctypes.CDLL:
         # max_win, meta_words, nwin_base, end_base, stream
         lib.tsq_decode_bulk.argtypes = [P, P, P, P, *[I] * 9, P]
         lib.tsq_decode_bulk.restype = I
+        # input, side, rec, osz, out, n_blocks, in_rows, side_rows,
+        # rec_rows, out_rows, max_win, stream
+        lib.tsq_encode_assemble.argtypes = [P, P, P, P, P, *[I] * 6, P]
+        lib.tsq_encode_assemble.restype = I
+        # input, cand, nv, meta, side, rec, osz, n_blocks, in_rows,
+        # cand_rows, side_rows, rec_rows, ext, stream
+        lib.tsq_encode_decide.argtypes = [P] * 7 + [I] * 6 + [P]
+        lib.tsq_encode_decide.restype = I
+        # input, cand, nv, meta, desc, stats, n_blocks, in_rows, cand_rows,
+        # desc_rows, ext, stream
+        lib.tsq_encode_flat_decide.argtypes = [P] * 6 + [I] * 5 + [P]
+        lib.tsq_encode_flat_decide.restype = I
         # payload, meta, dict, out, n_blocks, pay_rows, out_rows,
         # dict_rows, stream
         lib.tsq_decode_stream.argtypes = [P, P, P, P, I, I, I, I, P]

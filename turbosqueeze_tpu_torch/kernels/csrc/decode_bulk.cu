@@ -41,6 +41,14 @@
 // the window), so the TPU scratch's two spare rows have no counterpart: a
 // row past the window writes nothing. Stream words past the plane read 0,
 // and a source row past its plane reads zeros.
+//
+// The same kernel is the assemble pass of the two-pass emitter
+// (tsq_encode_assemble), replacing the Pallas kernel
+// turbosqueeze_tpu/kernels/encode_bulk.py::_assemble_kernel: the decide
+// pass (encode_bulk.cu) writes a single-stream record stream whose records
+// all read the U plane [dead tail | input | side], and an osz row that is
+// this ABI's meta. The literal plane is then two planes read where they
+// lie, the input's rows followed by the side plane's, so nothing is staged.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -87,13 +95,16 @@ __global__ void __launch_bounds__(kThreads) decode_bulk_kernel(
     const uint32_t* __restrict__ lit, const uint32_t* __restrict__ rec,
     const uint32_t* __restrict__ meta, uint32_t* out, int nblk, int lit_rows,
     int rec_rows, int out_rows, int max_win, int meta_words, int nwin_base,
-    int end_base) {
+    int end_base, const uint32_t* __restrict__ lit2, int lit2_rows) {
   const int b = blockIdx.x, t = threadIdx.x, p0 = 4 * t;
   const int g = b / nblk, k = b - g * nblk;
   const uint32_t* m = meta + static_cast<size_t>(g) * meta_words;
   const uint32_t* words = rec + static_cast<size_t>(g) * rec_rows * kLanes;
   const int64_t n_words = static_cast<int64_t>(rec_rows) * kLanes;
   const uint32_t* lit_b = lit + static_cast<size_t>(b) * lit_rows * kLanes;
+  // the literal plane's second part, after its lit_rows rows (or none)
+  const uint32_t* lit2_b =
+      lit2 ? lit2 + static_cast<size_t>(b) * lit2_rows * kLanes : nullptr;
   uint32_t* blk = out + static_cast<size_t>(b) * out_rows * kLanes;
   const uint32_t n_win = min(m[nwin_base + k], static_cast<uint32_t>(max_win));
 
@@ -125,6 +136,10 @@ __global__ void __launch_bounds__(kThreads) decode_bulk_kernel(
             if (w) src = win - (kTailRows - srow) * kLanes;
           } else if (srow - kTailRows < static_cast<uint32_t>(lit_rows)) {
             src = lit_b + static_cast<size_t>(srow - kTailRows) * kLanes;
+          } else if (srow - kTailRows - lit_rows <
+                     static_cast<uint32_t>(lit2_rows)) {
+            src = lit2_b +
+                  static_cast<size_t>(srow - kTailRows - lit_rows) * kLanes;
           }
           fold_record(r.x, r.y, p0, src, val, msk);
         }
@@ -153,7 +168,25 @@ int tsq_decode_bulk(const void* lit, const void* rec, const void* meta,
       static_cast<const uint32_t*>(lit), static_cast<const uint32_t*>(rec),
       static_cast<const uint32_t*>(meta), static_cast<uint32_t*>(out), nblk,
       lit_rows, rec_rows, out_rows, max_win, meta_words, nwin_base,
-      end_base);
+      end_base, nullptr, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The assemble pass: the decide pass's streams over the U plane [dead tail
+// | input (in_rows) | side (side_rows)] through the single-stream ABI (8
+// meta words, the window count at 1, window ends from 5), osz as the meta.
+// out: (n_blocks, out_rows, 128) words, zeroed by the caller, with out_rows
+// >= max_win * 4096.
+int tsq_encode_assemble(const void* input, const void* side, const void* rec,
+                        const void* osz, void* out, int n_blocks, int in_rows,
+                        int side_rows, int rec_rows, int out_rows,
+                        int max_win, void* stream) {
+  decode_bulk_kernel<<<n_blocks, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(input), static_cast<const uint32_t*>(rec),
+      static_cast<const uint32_t*>(osz), static_cast<uint32_t*>(out), 1,
+      in_rows, rec_rows, out_rows, max_win, 8, 1, 5,
+      static_cast<const uint32_t*>(side), side_rows);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,15 +30,19 @@
 // upstream; the table probe's offset test comes before the load it guards,
 // so a rejected position is never read.
 //
-// Safety. A candidate chain must strictly decrease (phase A never makes
-// one that does not): an entry at or past the position it is read at ends
-// the chain, so a garbage plane cannot loop or read out of bounds. A block
-// whose meta does not fit the planes gets osz = -1 and no payload.
+// Safety. The candidate parse (encode_parse.cuh, shared with the other
+// emitters) ends a chain where it stops decreasing, so a garbage plane
+// cannot loop or read out of bounds. A block whose meta does not fit the
+// planes gets osz = -1 and no payload.
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "encode_parse.cuh"
+
 namespace {
+
+using namespace tsq_parse;
 
 constexpr int kThreads = 128;           // zero the table; one then parses
 constexpr int kRowBytes = 512;
@@ -48,59 +52,9 @@ constexpr uint32_t kBlockSize = 1u << 22;
 constexpr uint32_t kHashEntries = 1u << 17;
 constexpr uint32_t kHashMask = kHashEntries - 1;
 constexpr int64_t kReadSlack = 8 * kRowBytes;  // reads past a block's end
-constexpr uint32_t kNone = 0xFFFFFFFFu;
-
-__device__ __forceinline__ uint32_t load32(const uint32_t* __restrict__ w,
-                                           uint32_t p) {
-  const uint32_t q = p >> 2;
-  return __funnelshift_r(__ldg(w + q), __ldg(w + q + 1), (p & 3) * 8);
-}
-
-__device__ __forceinline__ uint64_t load64(const uint32_t* __restrict__ w,
-                                           uint32_t p) {
-  const uint32_t q = p >> 2, sh = (p & 3) * 8;
-  const uint32_t a = __ldg(w + q), b = __ldg(w + q + 1), c = __ldg(w + q + 2);
-  return static_cast<uint64_t>(__funnelshift_r(a, b, sh)) |
-         (static_cast<uint64_t>(__funnelshift_r(b, c, sh)) << 32);
-}
-
-__device__ __forceinline__ uint32_t tz_bytes(uint64_t x) {
-  return x ? static_cast<uint32_t>(__ffsll(static_cast<long long>(x)) - 1) >> 3
-           : 8u;
-}
 
 __device__ __forceinline__ uint32_t hash4(uint32_t v) {
   return (v ^ (v >> 12)) & kHashMask;
-}
-
-// Match length k (4..64) -> 4-bit size code, and a code's cursor advance.
-__device__ __forceinline__ uint32_t len_code(uint32_t k) {
-  return k <= 16 ? k - 1 : k <= 31 ? 15u : k <= 47 ? 0u : k <= 63 ? 1u : 2u;
-}
-
-__device__ __forceinline__ uint32_t code_width(uint32_t c) {
-  return c < 3 ? (c + 2) << 4 : c + 1;
-}
-
-// Common-prefix length of the input at i and pos (csrc extend_match's
-// extension, before the anchor-window cap).
-template <bool kExt>
-__device__ __forceinline__ uint32_t prefix(const uint32_t* __restrict__ w,
-                                           uint32_t i, uint32_t pos) {
-  uint32_t k = tz_bytes(load64(w, i) ^ load64(w, pos));
-  if (k == 8) {
-    if (kExt) {
-      uint32_t nb, m = 1;
-      do {
-        nb = tz_bytes(load64(w, i + 8 * m) ^ load64(w, pos + 8 * m));
-        k += nb;
-        ++m;
-      } while (nb == 8 && k < 64);
-    } else {
-      k += tz_bytes(load64(w, i + 8) ^ load64(w, pos + 8));
-    }
-  }
-  return k;
 }
 
 // The bitstream writer: the ctrl/size slot bookkeeping of csrc TokenSink.
@@ -187,63 +141,6 @@ struct Sink {
     return j;
   }
 };
-
-// Nearest chain entry p with p + 4 <= anchor and an offset <= 65534
-// (csrc usable_candidate); the chain ends where it stops decreasing.
-__device__ __forceinline__ uint32_t usable(const int32_t* __restrict__ cand,
-                                           uint32_t i, uint32_t anchor) {
-  int64_t q = i, p = __ldg(cand + i);
-  while (p >= 0 && p < q && static_cast<uint32_t>(p) + 4 > anchor) {
-    q = p;
-    p = __ldg(cand + p);
-  }
-  if (p < 0 || p >= q || anchor - static_cast<uint32_t>(p) > 65534)
-    return kNone;
-  return static_cast<uint32_t>(p);
-}
-
-template <bool kExt>
-__device__ void parse_cand(const uint32_t* __restrict__ w,
-                           const int32_t* __restrict__ cand, Sink& sink,
-                           uint32_t base, uint32_t size) {
-  const uint32_t end = base + size;
-  uint32_t i = base;
-  for (;;) {
-    uint32_t run_start = i, pos;
-    for (;;) {
-      ++i;
-      pos = i < end ? usable(cand, i, sink.anchor) : kNone;
-      if (i - run_start > 31) {
-        sink.literals(w, run_start, i);
-        run_start = i;
-        // the flush may move the anchor past pos: re-validate
-        if (pos != kNone) pos = usable(cand, i, sink.anchor);
-      }
-      if (!(i < end) || pos != kNone) break;
-    }
-    sink.literals(w, run_start, i);
-    if (!(i < end)) break;
-    // the trailing flush can move the anchor past the candidate's 16-bit
-    // reach: walk the chain again under the new anchor
-    if (sink.anchor - pos > 65534) {
-      pos = usable(cand, i, sink.anchor);
-      if (pos == kNone) continue;
-    }
-    for (;;) {
-      uint32_t k = prefix<kExt>(w, i, pos);
-      const uint32_t window = sink.anchor - pos;
-      if (k > window) k = window - 1;
-      if (k < 4) break;
-      const uint32_t code = len_code(k);
-      i += code_width(code);
-      sink.match(window, code, i);
-      if (!(i < end - 5)) break;
-      pos = usable(cand, i, sink.anchor);
-      if (pos == kNone) break;
-    }
-    if (!(i < end)) break;
-  }
-}
 
 // The upstream's probe: the stored 16-bit position promoted into the 64 KiB
 // window ending at i, then i recorded.
@@ -338,8 +235,8 @@ __global__ void __launch_bounds__(kThreads) encode_emit_kernel(
     if (kTable)
       parse_table<kExt>(w, reinterpret_cast<uint16_t*>(tb), sink, base, size);
     else
-      parse_cand<kExt>(w, cand + static_cast<size_t>(b) * cand_len, sink,
-                       base, size);
+      parse_cand<kExt, false>(w, cand + static_cast<size_t>(b) * cand_len,
+                              nullptr, sink, base, size);
   }
   osz[b * kMetaWords] = static_cast<int32_t>(sink.finish());
 }

@@ -69,24 +69,32 @@ def emit_batch(input_words: torch.Tensor, cand_words: torch.Tensor | None,
     if matcher == "cand" and cand_words is None:
         raise ValueError("matcher='cand' needs cand_words")
     B = input_words.shape[0]
-    dev = input_words.device
     checks = [("input_words", input_words, (B, IN_ROWS, LANES)),
               ("meta", meta, (B, 8))]
     if cand_words is not None:
         checks.append(("cand_words", cand_words, (B, CAND_ROWS, LANES)))
-    for name, t, shape in checks:
-        if t.dtype != torch.int32 or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be int32 {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, input_words on {dev}")
+    dev = check_planes(checks, "emit")
     if matcher == "table":
         cand_words = None
     if dev.type == "cpu":
         return _emit_plain(input_words, cand_words, meta, ext)
-    if dev.type != "cuda":
-        raise ValueError(f"no emit kernel for device {dev}")
     return _launch(input_words, cand_words, meta, ext, matcher)
+
+
+def check_planes(planes, what: str) -> torch.device:
+    """Each (name, tensor, shape) int32 with that shape, all on the first
+    one's device, a CPU or CUDA device; returns it."""
+    dev = planes[0][1].device
+    for name, t, shape in planes:
+        if t.dtype != torch.int32 or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must be int32 {tuple(shape)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, {planes[0][0]} on "
+                             f"{dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {what} kernel for device {dev}")
+    return dev
 
 
 def _launch(input_words, cand_words, meta, ext, matcher):
@@ -234,8 +242,15 @@ def _prefix_fn(v4, ext: bool):
     return prefix
 
 
-def _parse_cand(inp, v4, cand, sink, base, size, ext):
-    """Greedy emission from candidates (``encode_candidates_impl``)."""
+def _parse_cand(inp, v4, cand, sink, base, size, ext, nv=None):
+    """Greedy emission from candidates (``encode_candidates_impl``).
+
+    ``sink`` has an ``anchor`` and takes ``literals(inp, frm, upto)`` and
+    ``match(offset, code, cursor)``. With ``nv``, the next_valid skip table
+    (``nv[i]``: the first j >= i with a candidate), the scan jumps between
+    candidate stops and replays the 32-byte literal flushes on the way; no
+    decision changes, since a position without a candidate only flushes.
+    An entry below its position is read as the position."""
     prefix = _prefix_fn(v4, ext)
     end = base + size
     end5 = (end - 5) & _U32
@@ -252,7 +267,14 @@ def _parse_cand(inp, v4, cand, sink, base, size, ext):
     while True:
         run_start = i
         while True:
-            i += 1
+            if nv is None:
+                i += 1
+            else:
+                nxt = min(max(nv[i + 1], i + 1), end)
+                while nxt - run_start > 32:
+                    sink.literals(inp, run_start, run_start + 32)
+                    run_start += 32
+                i = nxt
             pos = usable(i, sink.anchor) if i < end else -1
             if i - run_start > 31:
                 sink.literals(inp, run_start, i)
@@ -343,25 +365,36 @@ def _parse_table(inp, v4, sink, base, size, ext):
             break
 
 
+def meta_fits(size: int, base: int) -> bool:
+    """Whether a block's meta fits the input plane, with the parse's read
+    slack (and so the candidate plane: CAND_ROWS * 128 > IN_ROWS * 512 -
+    _READ_SLACK)."""
+    return (0 <= size <= BLOCK_SZ and base >= 0
+            and base + size + _READ_SLACK <= IN_ROWS * ROW_BYTES)
+
+
+def block_input(planes: torch.Tensor, b: int, base: int, size: int):
+    """Block b's input bytes up to the parse's read slack, and its 4-byte
+    windows, for the parses."""
+    inp = planes[b, :base + size + _READ_SLACK].numpy().tobytes()
+    w = np.frombuffer(inp, dtype=np.uint8).astype(np.uint32)
+    v4 = (w[:-3] | (w[1:-2] << 8) | (w[2:-1] << 16) | (w[3:] << 24)).tolist()
+    return inp, v4
+
+
 def _emit_plain(input_words, cand_words, meta, ext):
     B = input_words.shape[0]
-    in_bytes = IN_ROWS * ROW_BYTES
     out = np.zeros((B, OUT_ROWS * ROW_BYTES), dtype=np.uint8)
     osz = torch.zeros((B, 8), dtype=torch.int32)
     planes = input_words.contiguous().view(torch.uint8).reshape(B, -1)
     for b, (size, base) in enumerate(meta[:, :2].tolist()):
-        if not (0 <= size <= BLOCK_SZ and base >= 0
-                and base + size + _READ_SLACK <= in_bytes):
+        if not meta_fits(size, base):
             osz[b, 0] = -1
             continue
         buf = bytearray(out.shape[1])
         sink = _TokenSink(buf, size, base)
         if size > 0:
-            hi = min(base + size + _READ_SLACK, in_bytes)
-            inp = planes[b, :hi].numpy().tobytes()
-            w = np.frombuffer(inp, dtype=np.uint8).astype(np.uint32)
-            v4 = (w[:-3] | (w[1:-2] << 8) | (w[2:-1] << 16)
-                  | (w[3:] << 24)).tolist()
+            inp, v4 = block_input(planes, b, base, size)
             if cand_words is None:
                 _parse_table(inp, v4, sink, base, size, ext)
             else:

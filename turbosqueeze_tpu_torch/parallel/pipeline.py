@@ -36,9 +36,14 @@ window k decodes; each window is waited for only when it is drained.
 Encode: the host packs each window's bytes into pinned memory and copies
 them to the device, where the level picks the route: level 0 runs the
 upstream's hash-table parse in the emit kernel; level 1 runs phase A (the
-candidate search) and then the emit kernel on its candidates; level >= 2
-runs phase A and sends the candidates back for the native core's lazy
-parse on the host. Only each window's live payload prefix comes back.
+candidate search) and then a level-1 emitter on its candidates, the one
+``emit_impl`` names: ``"scan"``, the single-pass emit kernel; ``"bulk"``,
+the decide kernel and the assemble pass (``kernels/encode_bulk.py``);
+``"flat"``, the flat decide kernel and the sort layout
+(``kernels/encode_flat.py``). Level >= 2 runs phase A and sends the
+candidates back for the native core's lazy parse on the host. Only each
+window's live payload prefix comes back; a block that the bulk or flat
+emitter flags as overflowed is emitted on the host from its candidates.
 """
 
 from __future__ import annotations
@@ -57,7 +62,9 @@ from ..kernels import decode_gang as DGK
 from ..kernels import decode_stream as DST
 from ..kernels import decode_tokens as DK
 from ..kernels import decode_xla as DXL
+from ..kernels import encode_bulk as EB
 from ..kernels import encode_emit as EE
+from ..kernels import encode_flat as EF
 from ..kernels import encode_xla as EX
 from ..kernels.decode_tokens import planes_to_torch
 from ..runtime import native
@@ -78,6 +85,11 @@ WINDOW_BLOCKS = 32
 XLA_WINDOW_BLOCKS = 16
 
 _DICT_PAD = 1 << 16  # dict-extended output/payload headroom (bucketed)
+
+_EMITTERS = ("scan", "bulk", "flat")  # the level-1 emitters of compress
+# blocks the bulk and flat emitters flagged as overflowed, emitted on the
+# host instead, since the count was last reset
+overflow_blocks = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -380,32 +392,72 @@ def _phase_a(batch: torch.Tensor, win: List[bytes], dlen: int) -> torch.Tensor:
     return EX.find_candidates(batch[:, :dlen + max(map(len, win))])
 
 
-def _emit_window(batch, cands, win, dlen: int, ext: bool):
-    """The emit kernel on a window: the ``"table"`` matcher without
-    candidates, else ``"cand"``. Returns (payload words, osz)."""
+def emit_planes(batch, cands, win, dlen: int):
+    """A window's emitter planes on its device: input words (B, IN_ROWS,
+    128), candidate words (B, CAND_ROWS, 128), -1 padded (None without
+    candidates), and meta (B, 8) ``[size, dlen]``."""
     B, dev = len(win), batch.device
     input_words = batch.view(torch.int32).reshape(B, EE.IN_ROWS, DK.LANES)
-    meta = torch.from_numpy(EE.pack_meta([len(b) for b in win], dlen))
-    cand_words = None
-    if cands is not None:
-        cand_words = torch.full((B, EE.CAND_ROWS * DK.LANES), -1,
-                                dtype=torch.int32, device=dev)
-        cand_words[:, :cands.shape[1]] = cands
-        cand_words = cand_words.view(B, EE.CAND_ROWS, DK.LANES)
-    return EE.emit_batch(input_words, cand_words, meta.to(dev), ext=ext,
-                         matcher="cand" if cands is not None else "table")
+    meta = torch.from_numpy(EE.pack_meta([len(b) for b in win], dlen)).to(dev)
+    if cands is None:
+        return input_words, None, meta
+    cand_words = torch.full((B, EE.CAND_ROWS * DK.LANES), -1,
+                            dtype=torch.int32, device=dev)
+    cand_words[:, :cands.shape[1]] = cands
+    return input_words, cand_words.view(B, EE.CAND_ROWS, DK.LANES), meta
 
 
-def _download_window(words: torch.Tensor, osz: torch.Tensor) -> List[bytes]:
+def _emit_window(batch, cands, win, dlen: int, ext: bool,
+                 emit_impl: str = "scan"):
+    """A level-1 emitter on a window (``emit_impl``), or without candidates
+    (level 0) the emit kernel's ``"table"`` matcher. Returns (payload
+    words, osz)."""
+    input_words, cand_words, meta = emit_planes(batch, cands, win, dlen)
+    if cands is None:
+        return EE.emit_batch(input_words, None, meta, ext=ext,
+                             matcher="table")
+    if emit_impl == "bulk":
+        return EB.emit_bulk_batch(input_words, cand_words, meta, ext=ext)
+    if emit_impl == "flat":
+        return EF.flat_emit_batch(input_words, cand_words, meta, ext=ext)
+    return EE.emit_batch(input_words, cand_words, meta, ext=ext,
+                         matcher="cand")
+
+
+def _download_window(words: torch.Tensor, osz: torch.Tensor,
+                     emitter: str) -> List[bytes]:
     """Each block's payload, copying back only the live prefix of the
-    output plane (the rows up to the longest payload)."""
-    sizes = osz[:, 0].tolist()
-    if min(sizes) < 1:
-        raise RuntimeError(f"emit kernel refused a block: osz {sizes}")
-    rows = -(-max(sizes) // DK.ROW_BYTES)
+    output plane (the rows up to the longest payload); None for a block
+    the emitter flagged as overflowed."""
+    osz = osz.cpu()
+    sizes, flagged = osz[:, 0].tolist(), (osz[:, 2] != 0).tolist()
+    live = [n for n, f in zip(sizes, flagged) if not f]
+    if min(live, default=1) < 1:
+        raise RuntimeError(f"the {emitter} emitter refused a block: osz "
+                           f"{sizes}")
+    rows = max(1, -(-max(live, default=0) // DK.ROW_BYTES))
     flat = words[:, :rows].cpu().contiguous().view(torch.uint8).reshape(
         len(sizes), -1)
-    return [flat[b, :n].numpy().tobytes() for b, n in enumerate(sizes)]
+    return [None if f else flat[b, :n].numpy().tobytes()
+            for b, (n, f) in enumerate(zip(sizes, flagged))]
+
+
+def _host_emitter(win, cands, dictionary, ext: bool, level: int):
+    """Block b of the window -> its payload, emitted by the native core
+    from the device's candidates."""
+    host = cands.cpu().numpy()
+    dlen = len(dictionary) if dictionary is not None else 0
+
+    def emit(b):
+        blk = win[b]
+        if dictionary is not None:
+            return native.encode_block_dict(blk, dictionary,
+                                            host[b, :dlen + len(blk)], ext,
+                                            level=level)
+        return native.encode_block_candidates(blk, host[b, :len(blk)], ext,
+                                              level=level)
+
+    return emit
 
 
 def compress(data: bytes, ext: bool = True, level: int = 1, device=None,
@@ -416,7 +468,8 @@ def compress(data: bytes, ext: bool = True, level: int = 1, device=None,
     The container is byte-identical to ``native.compress(data, ext,
     level)``, or with ``dictionary`` to ``native.compress_dict``. Level 0
     is the upstream's parse (the emit kernel's ``"table"`` matcher, no
-    phase A). Level 1 runs phase A and the ``"cand"`` matcher. Level >= 2
+    phase A). Level 1 runs phase A and a level-1 emitter on its
+    candidates (``emit_impl``). Level >= 2
     runs phase A on the device and the native core's lazy parse of those
     candidates on the host, in a thread pool. A dictionary (1..65532 bytes)
     lifts the level to at least 1; every block is searched and parsed as
@@ -425,14 +478,16 @@ def compress(data: bytes, ext: bool = True, level: int = 1, device=None,
     device: a CUDA device (default: the first), or ``"cpu"`` for the
     kernels' plain PyTorch versions; a CUDA device with no GPU raises.
     progress: called with ``(blocks_done, n_blocks)`` once per block, in
-    block order. emit_impl: only ``"scan"``, the single-pass emitter, is
-    ported. window_blocks: blocks per window (default ``WINDOW_BLOCKS``).
+    block order. emit_impl: the level-1 emitter, for level 1 and the
+    dictionary: ``"scan"``, the single-pass emit kernel; ``"bulk"``, the
+    two-pass decide and assemble kernels; ``"flat"``, the flat decide
+    kernel and the sort layout. Level 0 and level >= 2 ignore it. A block
+    that the bulk or flat emitter flags as overflowed is emitted on the
+    host from the card's candidates (``overflow_blocks`` counts them).
+    window_blocks: blocks per window (default ``WINDOW_BLOCKS``).
     """
-    if emit_impl in ("bulk", "flat"):
-        raise NotImplementedError(
-            f"emit_impl={emit_impl!r} is not ported yet (ROADMAP.md, queue "
-            f"2: the encode_bulk and encode_flat kernels)")
-    if emit_impl != "scan":
+    global overflow_blocks
+    if emit_impl not in _EMITTERS:
         raise ValueError(f"unknown emit_impl: {emit_impl!r}")
     dlen = 0
     if dictionary is not None:
@@ -451,20 +506,17 @@ def compress(data: bytes, ext: bool = True, level: int = 1, device=None,
             batch = _upload_window(win, dictionary, dev)
             cands = _phase_a(batch, win, dlen) if level >= 1 else None
             if level <= 1:
-                payloads = _download_window(
-                    *_emit_window(batch, cands, win, dlen, ext))
+                emitter = emit_impl if cands is not None else "table"
+                payloads = _download_window(*_emit_window(
+                    batch, cands, win, dlen, ext, emitter), emitter)
+                over = [b for b, p in enumerate(payloads) if p is None]
+                if over:
+                    emit = _host_emitter(win, cands, dictionary, ext, level)
+                    for b in over:
+                        payloads[b] = emit(b)
+                    overflow_blocks += len(over)
             else:
-                host = cands.cpu().numpy()
-
-                def emit(b):
-                    blk = win[b]
-                    if dictionary is not None:
-                        return native.encode_block_dict(
-                            blk, dictionary, host[b, :dlen + len(blk)], ext,
-                            level=level)
-                    return native.encode_block_candidates(
-                        blk, host[b, :len(blk)], ext, level=level)
-
+                emit = _host_emitter(win, cands, dictionary, ext, level)
                 payloads = list(pool.map(emit, range(len(win))))
             for b, payload in enumerate(payloads):
                 parts += [pack_block_header(len(payload), ext), payload]
