@@ -19,12 +19,15 @@ Phases:
   0. the card; rebuild the port's native host core and build the CUDA
      kernels, at once;
   1. the gang kernel against its plain PyTorch version, per
-     (nblk, slot_recs), over mixed corpora and levels;
+     (nblk, slot_recs), over mixed corpora and levels, and on garbage
+     planes from three seeds;
   2. the stream kernel against its plain version, ext on and off, and with
      a preset dictionary;
   3. end to end: a 256 MiB input (64 full blocks) compressed at levels 0,
      1 and 2, decoded through the public API, checked against the input
-     and the native host decoder, and timed;
+     and the native host decoder, and timed; and the gang kernel on one
+     full level-1 block of each of the eight classes (its U and W gangs,
+     its time, ms per gang), against its plain version;
   4. the stream route end to end on a 64 MiB container;
   5. the emit kernel against its plain version and the native core, both
      matchers, ext on and off, mixed blocks (a full random block, a short
@@ -76,6 +79,7 @@ line. Run from the repository root:
 
 from __future__ import annotations
 
+import collections
 import json
 import statistics
 import subprocess
@@ -254,18 +258,26 @@ def phase1(errs):
         say("phase1", nblk=nblk, slot_recs=srecs, blocks=len(datas),
             bytes=sum(sizes), exact=True)
 
-    # garbage planes: records, sources and gmeta bounds anywhere; the
-    # kernel must stay inside its planes (a fault would surface here)
-    rng = np.random.default_rng(5)
-    lw = rng.integers(-2**31, 2**31, (4, 16, 128), dtype=np.int32)
-    gw = rng.integers(0, 2**32, (2, 64, 128), dtype=np.uint32)
-    gm = rng.integers(0, 2**32, (2, 32), dtype=np.uint32)
-    gm[0, 8:16] = rng.integers(0, 4, 8)
-    gm[0, 16:22] = np.sort(rng.integers(0, 300, 6))  # some past the stream
-    DG.decode_gang_batch(*planes_to_torch(lw, gw, gm, device="cuda"),
-                         nblk=2, slot_recs=16, max_win=2)
-    torch.cuda.synchronize()
-    say("phase1", garbage_planes="no fault")
+    # garbage planes (tests/gang_streams.py): records anywhere, window
+    # counts and segment bounds past the stream and below the round
+    # counter; the kernels stay inside their planes and give the plain
+    # version's words
+    from gang_streams import garbage_planes
+
+    for seed in (5, 6, 7):
+        lw, gw, gm, nblk, srecs, max_win = garbage_planes(seed)
+        kw = dict(nblk=nblk, slot_recs=srecs, max_win=max_win,
+                  out_rows=max_win * 4096)
+        got = DG.decode_gang_batch(*planes_to_torch(lw, gw, gm, device="cuda"),
+                                   **kw)
+        ref = DG.decode_gang_batch(*planes_to_torch(lw, gw, gm, device="cpu"),
+                                   **kw)
+        diff = (got.cpu().view(torch.uint8).to(torch.int16)
+                - ref.view(torch.uint8).to(torch.int16)).abs().max()
+        errs["decode_gang"] = max(errs["decode_gang"], int(diff))
+        check(torch.equal(got.cpu(), ref) and bool(ref.any()),
+              f"gang garbage planes, seed {seed}: kernel != plain")
+    say("phase1", garbage_planes=3, exact=True)
 
 
 def phase2(errs):
@@ -334,28 +346,10 @@ def phase2(errs):
 
 def _e2e_input(n_blocks: int) -> bytes:
     """Full 4 MiB blocks cycling over the in-repo real files and the
-    synthetic classes, each block cut from its class at its own offset."""
-    from turbosqueeze_tpu_torch.utils.corpus import (real_files,
-                                                     synthetic_binary,
-                                                     synthetic_text)
+    synthetic classes (``tests/gang_streams.py::class_blocks``)."""
+    from gang_streams import class_blocks
 
-    blk = 4 * MiB
-    pool = list(real_files().values()) + [
-        synthetic_text(blk, seed=301), synthetic_binary(blk, seed=302), None,
-        None]
-    out = []
-    for i in range(n_blocks):
-        c = i % len(pool)
-        if c == len(pool) - 2:
-            out.append(bytes(blk))
-        elif c == len(pool) - 1:
-            out.append(np.random.default_rng(1000 + i).bytes(blk))
-        else:
-            src = pool[c]
-            off = (i // len(pool)) * 523_123 % len(src)
-            reps = (off + blk) // len(src) + 1
-            out.append((src * reps)[off:off + blk])
-    return b"".join(out)
+    return b"".join(class_blocks(n_blocks))
 
 
 def _main_path(counts, fn):
@@ -384,6 +378,75 @@ def _main_path(counts, fn):
     for abi, n in DB.launches.items():
         counts[f"decode_{abi}"] += n
     return r
+
+
+def _cuda_kernels(fn):
+    """CUDA kernels that one call of ``fn`` launched, as torch.profiler
+    traced them: {name: count}, or None if the trace holds no device
+    activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return dict(collections.Counter(names)) if names else None
+
+
+def _gang_classes(errs, timing, data, stream, dev, planes, srecs):
+    """The gang kernel on each class's full block (blocks 0-7 of the first
+    window of the level-1 ``stream``, at the main path's plane shapes and
+    width 1): its U and W gangs per window, its time, ms per gang and CUDA
+    launches per call, held to the plain version; block 0 is the kernel's
+    timed row."""
+    from gang_streams import CLASSES
+    from turbosqueeze_tpu_torch.format import scan_block_table
+    from turbosqueeze_tpu_torch.kernels import decode_bulk as DB
+    from turbosqueeze_tpu_torch.kernels import decode_gang as DG
+
+    def gang(planes):
+        return DG.decode_gang_batch(*planes, nblk=1, slot_recs=srecs)
+
+    _, table = scan_block_table(stream)
+    with ThreadPoolExecutor() as pool:  # each block's own literal bytes
+        preps = DB.resolve_blocks([(stream[o:o + n], e) for o, n, e
+                                   in table[:len(CLASSES)]], pool.map)
+    for b, name in enumerate(CLASSES):
+        blk = [t[b:b + 1] for t in dev]
+        blk_h = [t.cpu() for t in blk]
+        meta = planes[2][b].view(np.uint32)
+        r, u, w = 0, [], []
+        for win in range(int(meta[8])):
+            u.append(max(0, int(meta[16 + 2 * win]) - r))
+            r = max(r, int(meta[16 + 2 * win]))
+            w.append(max(0, int(meta[17 + 2 * win]) - r))
+            r = max(r, int(meta[17 + 2 * win]))
+        size, ref = planes[3][b], []
+        ms = _cuda_ms(lambda: gang(blk), 5)
+        plain_ms = _host_ms(lambda: ref.append(gang(blk_h)), 1)
+        got = []
+        kernels = _cuda_kernels(lambda: got.append(gang(blk)))
+        launched = ("not measured" if kernels is None else
+                    sum(n for k, n in kernels.items() if "gang_" in k))
+        _compare(errs, "decode_gang", _bytes_of(got[0], 0, 0, size),
+                 _bytes_of(ref[0], 0, 0, size),
+                 data[b * 4 * MiB:b * 4 * MiB + size],
+                 f"gang full block, {name}")
+        # the bytes the block's work needs, each once: its own literals,
+        # its gang stream to its last segment bound, its meta and output
+        lit_b = len(preps[b][0])
+        rec_b = min(r, int(meta[30])) * 2 * srecs * 4
+        moved = lit_b + rec_b + _nbytes(blk[2], got[0])
+        if b == 0:
+            timing["decode_gang"] = (ms, plain_ms, moved)
+        say("phase3", gang_block=name, u_gangs="/".join(map(str, u)),
+            w_gangs="/".join(map(str, w)), kernel_ms=f"{ms:.4f}",
+            ms_per_gang=f"{ms / max(1, sum(u) + sum(w)):.6f}",
+            cuda_launches_per_call=launched, plain_ms=f"{plain_ms:.1f}",
+            lit_bytes=lit_b, rec_bytes=rec_b, out_bytes=_nbytes(got[0]),
+            bound_ms=f"{moved / HBM_BYTES_PER_MS:.6f}", exact=True)
 
 
 def phase3(errs, counts, timing):
@@ -442,20 +505,9 @@ def phase3(errs, counts, timing):
         download_ms = _cuda_ms(lambda: [h.copy_(o, non_blocking=True)
                                         for h, o in zip(host, outs)], 3)
         del outs, host
-        if level == 1:  # one full block at the main path's plane shapes
-            blk = [t[:1] for t in dev[0]]
-            blk_h = [t.cpu() for t in blk]
-            size = planes[0][3][0]
-
-            def gang(planes):
-                return DG.decode_gang_batch(*planes, nblk=1, slot_recs=srecs)
-
-            timing["decode_gang"] = (_cuda_ms(lambda: gang(blk), 5),
-                                     _host_ms(lambda: gang(blk_h), 1),
-                                     _nbytes(*blk, gang(blk)))
-            _compare(errs, "decode_gang", _bytes_of(gang(blk), 0, 0, size),
-                     _bytes_of(gang(blk_h), 0, 0, size), data[:size],
-                     "gang full block")
+        if level == 1:
+            _gang_classes(errs, timing, data, stream, dev[0], planes[0],
+                          srecs)
         del dev
         say("phase3", level=level, input_mb=f"{mb:.1f}",
             ratio=f"{len(stream) / len(data):.4f}", exact=True,
@@ -1509,7 +1561,7 @@ def main() -> int:
         print("FAIL: run from the root of a checkout of the repository",
               flush=True)
         return 1
-    sys.path.insert(0, str(REPO))
+    sys.path[:0] = [str(REPO), str(REPO / "tests")]  # gang_streams
     t_start = time.perf_counter()
     name = phase0()
     errs = dict.fromkeys(KERNELS, 0)

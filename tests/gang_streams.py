@@ -1,0 +1,198 @@
+"""Gang streams for the gang decoder's tests (no JAX here: the GPU tests
+import this module on a machine without it): hand-built streams whose
+records overlap, read their own rows or carry odd segment bounds, the
+streams on which the port deliberately differs from the interpreted
+Pallas kernel, garbage planes, and the full blocks of the classes
+``chip_smoke.py`` decodes."""
+
+import numpy as np
+
+# Each case is (gangs, bounds, n_win): gangs are (row, [(dst_off, len, w1),
+# ...]) in stream order, one round each (nblk 1); bounds are gmeta[16:],
+# the cumulative rounds at the end of each window's U and W segments
+# (None: past the stream). The port and the interpreted kernel agree on
+# these: their sources lie inside the planes both kernels write, and the
+# stream's last 8 rows hold only null gangs (see DIFFERENCES).
+
+FILL = 1 << 31
+
+
+def _u(row, col):
+    """A U-plane source: rows [0, 130) are the previous window's tail,
+    the literal plane follows."""
+    return row << 9 | col
+
+
+def _w(row, col):
+    """A source in the current window (bit 29 marks it; the kernels mask
+    it off)."""
+    return 1 << 29 | row << 9 | col
+
+
+_LIT = 130  # first literal row of the U plane
+
+CASES = {
+    # two U records on one byte, and two U gangs of one row on one byte;
+    # a record past the row's end, a source wrapping inside its row
+    "u_records_overlap": ([
+        (0, [(0, 4, FILL | 0x01), (2, 4, FILL | 0x02),
+             (6, 20, _u(_LIT + 1, 5))]),
+        (0, [(20, 10, FILL | 0x40), (500, 30, _u(_LIT + 2, 480))]),
+        (3, [(100, 300, _u(_LIT + 3, 200)), (150, 20, _u(_LIT + 4, 511))]),
+    ], [3, 3], 1),
+    # two records of one W gang on one byte, and a fill over both
+    "w_records_overlap": ([
+        (0, [(0, 512, _u(_LIT, 0))]),
+        (1, [(0, 512, _u(_LIT + 1, 7))]),
+        (2, [(0, 64, _w(0, 10)), (32, 64, _w(1, 500)), (40, 8, FILL | 0x80)]),
+    ], [2, 3], 1),
+    # a W gang that reads bytes of its own row that it also writes: it
+    # reads them as they stood before it; the next gang sees its writes
+    "w_reads_own_row": ([
+        (1, [(0, 256, _u(_LIT + 2, 0))]),
+        (1, [(0, 4, FILL | 0x11), (400, 4, _w(1, 0)), (410, 8, _w(1, 2)),
+             (254, 4, _w(1, 300))]),
+        (5, [(0, 4, _w(1, 0)), (4, 4, _w(1, 400)), (8, 8, _w(1, 252))]),
+    ], [1, 3], 1),
+    # window 0's W bound below its U bound (an empty W segment: the round
+    # counter stays), then window 1 reading window 0's tail
+    "w_bound_below_u": ([
+        (4000, [(0, 512, _u(_LIT, 3))]),
+        (4001, [(0, 512, _u(_LIT + 1, 0))]),
+        (4002, [(0, 100, FILL | 0x5A)]),
+        (4003, [(7, 90, _u(_LIT + 5, 9))]),
+        (0, [(0, 512, _u(34, 11))]),
+        (1, [(0, 300, _u(36, 0)), (300, 212, _u(37, 40))]),
+        (2, [(0, 512, _w(0, 100))]),
+        (3, [(10, 50, _w(1, 290)), (0, 20, _w(2, 0))]),
+    ], [4, 2, 6, 8], 2),
+    # bounds past the stream's rounds: the rounds that are not there do
+    # nothing, and later windows start where the stream ends
+    "bounds_past_stream": ([
+        (0, [(0, 512, _u(_LIT + 6, 1))]),
+        (1, [(5, 200, _w(0, 0)), (100, 20, FILL | 0x33)]),
+    ], [1, None, None, None], 2),
+}
+
+
+def _sources_outside_planes(n_rounds):
+    """A U gang reading window 0's tail (never staged), the first row past
+    the 8-row literal plane and a row past the reference's scratch, beside
+    one literal source; then a W gang reading the row past the window.
+    The port reads zeros there; the reference reads scratch that nothing
+    wrote (the interpreter fills it with 0x80000000 words)."""
+    return ([(0, 0, [(0, 8, _u(5, 0)), (8, 8, _u(_LIT + 8, 0)),
+                     (16, 8, _u(_LIT + 70, 0)), (24, 8, _u(_LIT, 0))]),
+             (1, 2, [(0, 8, _w(4096, 0)), (8, 8, _w(0, 24))])],
+            [1, 2], 1, [0, 1, 2, 3, 4, 5, 256, 257])
+
+
+def _rounds_past_stream(n_rounds):
+    """A FILL gang at the head of the stream's row 8 in window 0's U
+    segment, and window 1's W bound one round past the stream. The port
+    runs no round past the stream; the reference's ring re-reads the
+    stream's last 8-row chunk there, so its round ``n_rounds`` replays
+    that gang into window 1."""
+    half = n_rounds // 2  # the first gang of stream row 8
+    return ([(half, 5, [(0, 4, FILL | 0x07)])],
+            [half + 1] * 3 + [n_rounds + 1], 2, [(4096 + 5) * 128])
+
+
+# Where the port and the interpreted kernel differ by design (ROADMAP §3,
+# "Open"): case -> f(n_rounds) giving ([(round, row, records), ...],
+# bounds, n_win, the output words on which the two differ). Real streams
+# (native.bulk_gang) hold neither.
+DIFFERENCES = {"sources_outside_planes": _sources_outside_planes,
+               "rounds_past_stream": _rounds_past_stream}
+
+
+def hand_planes(case, slot_recs):
+    """Planes of one case of CASES or DIFFERENCES at ``slot_recs`` records
+    a gang: (lit, gang, gmeta, n_win), numpy int32, one block of 8 literal
+    rows and a 16-row stream."""
+    gw, rec_rows = 2 * slot_recs, 16
+    n_rounds = rec_rows * 128 // gw
+    if case in CASES:
+        gangs, bounds, n_win = CASES[case]
+        placed = [(i, row, recs) for i, (row, recs) in enumerate(gangs)]
+        assert len(gangs) * gw <= 8 * 128  # rows 8-15 are null gangs
+    else:
+        placed, bounds, n_win, _ = DIFFERENCES[case](n_rounds)
+    words = np.zeros(rec_rows * 128, np.uint32)
+    for i, row, recs in placed:
+        recs = recs + [(0, 0, FILL)] * (slot_recs - len(recs))  # null records
+        for j, (off, ln, w1) in enumerate(recs):
+            w0 = (row if j == 0 else 0) << 19 | off << 10 | ln
+            words[i * gw + 2 * j] = w0
+            words[i * gw + 2 * j + 1] = w1
+    gm = np.zeros((1, 32), np.uint32)
+    gm[0, 0], gm[0, 8], gm[0, 31] = n_win * (1 << 21), n_win, 1
+    gm[0, 16:16 + len(bounds)] = [n_rounds + 5 if b is None else b
+                                  for b in bounds]
+    gm[0, 30] = n_rounds
+    lit = np.random.default_rng(61).integers(
+        -2**31, 2**31, (1, 8, 128), dtype=np.int32)
+    return lit, words.view(np.int32).reshape(1, rec_rows, 128), \
+        gm.view(np.int32), n_win
+
+
+def differing_words(case, slot_recs):
+    """The output words of a DIFFERENCES case on which the port and the
+    interpreted kernel differ."""
+    return DIFFERENCES[case](16 * 128 // (2 * slot_recs))[3]
+
+
+def garbage_planes(seed):
+    """Random records (most sources near or inside their planes, so that
+    bytes land), random window counts, and segment bounds past the stream
+    and below the round counter: (lit, gang, gmeta, nblk, slot_recs,
+    max_win), numpy int32."""
+    rng = np.random.default_rng(seed)
+    nblk, slot_recs, max_win = ((2, 16, 2), (1, 8, 3), (3, 32, 2))[seed % 3]
+    groups, rec_rows = 2, 64
+    lit = rng.integers(-2**31, 2**31, (groups * nblk, 16, 128),
+                       dtype=np.int32)
+    words = rng.integers(0, 2**32, (groups, rec_rows * 128), dtype=np.uint32)
+    w1 = words[:, 1::2]
+    near = rng.integers(0, 4096 + 150, w1.shape).astype(np.uint32)
+    w1[:] = np.where(rng.random(w1.shape) < 0.6,
+                     (w1 & 0xA00001FF) | near << 9, w1)
+    n_rounds = rec_rows * 128 // (nblk * 2 * slot_recs)
+    gm = rng.integers(0, 2**32, (groups, 32), dtype=np.uint32)
+    gm[:, 8:16] = rng.integers(0, 5, (groups, 8))
+    gm[0, 16:22] = np.sort(rng.integers(0, n_rounds + 20, 6))
+    gm[1, 16:22] = rng.integers(0, n_rounds + 20, 6)
+    return (lit, words.view(np.int32).reshape(groups, rec_rows, 128),
+            gm.view(np.int32), nblk, slot_recs, max_win)
+
+
+# the classes of class_blocks, in their order
+CLASSES = ("licenses", "pydoc", "python", "bytecode", "synthetic_text",
+           "synthetic_binary", "zeros", "random")
+
+
+def class_blocks(n_blocks=len(CLASSES)):
+    """Full 4 MiB blocks cycling over the classes ``chip_smoke.py``
+    decodes: the four in-repo real files, synthetic text and binary,
+    zeros, random bytes; each block cut from its class at its own
+    offset."""
+    from turbosqueeze_tpu_torch.utils.corpus import (real_files,
+                                                     synthetic_binary,
+                                                     synthetic_text)
+
+    blk = 4 << 20
+    pool = list(real_files().values()) + [synthetic_text(blk, seed=301),
+                                          synthetic_binary(blk, seed=302)]
+    out = []
+    for i in range(n_blocks):
+        c = i % len(CLASSES)
+        if CLASSES[c] == "zeros":
+            out.append(bytes(blk))
+        elif CLASSES[c] == "random":
+            out.append(np.random.default_rng(1000 + i).bytes(blk))
+        else:
+            src = pool[c]
+            off = (i // len(CLASSES)) * 523_123 % len(src)
+            reps = (off + blk) // len(src) + 1
+            out.append((src * reps)[off:off + blk])
+    return out

@@ -7,7 +7,9 @@ not needed there):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import sys
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,6 +27,10 @@ from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
 from turbosqueeze_tpu_torch.parallel import pipeline
 from turbosqueeze_tpu_torch.utils.corpus import (synthetic_binary,
                                                  synthetic_text)
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from gang_streams import (CASES, DIFFERENCES,  # noqa: E402
+                          class_blocks, garbage_planes, hand_planes)
 
 pytestmark = pytest.mark.cuda
 
@@ -67,6 +73,62 @@ def test_gang_kernel_matches_plain(native, nblk, slot_recs):
     for k, d in enumerate(datas):
         assert _words_bytes(got, k, 0, sizes[k]) == d, f"block {k}"
         assert _words_bytes(ref, k, 0, sizes[k]) == d, f"plain block {k}"
+
+
+@pytest.mark.parametrize("slot_recs", [8, 16, 32])
+@pytest.mark.parametrize("case", list(CASES) + list(DIFFERENCES))
+def test_gang_kernel_hand_built_streams_match_plain(native, case, slot_recs):
+    """Overlapping records, a W gang reading its own row, odd segment
+    bounds, sources outside the planes, rounds past the stream: 50
+    launches, each equal to the plain version (a race between a gang's
+    reads and its stores would show as a differing launch)."""
+    lw, gw, gm, _ = hand_planes(case, slot_recs)
+    ref = PG.decode_gang_batch(*planes_to_torch(lw, gw, gm, device="cpu"),
+                               nblk=1, slot_recs=slot_recs)
+    dev = planes_to_torch(lw, gw, gm, device="cuda")
+    outs = [PG.decode_gang_batch(*dev, nblk=1, slot_recs=slot_recs)
+            for _ in range(50)]
+    assert ref.any()
+    for i, got in enumerate(outs):
+        assert torch.equal(got.cpu(), ref), f"launch {i}"
+
+
+@pytest.mark.parametrize("seed", [51, 52, 53])
+def test_gang_kernel_garbage_planes_match_plain(native, seed):
+    """Garbage records, window counts and segment bounds: the kernels stay
+    inside their planes and give the plain version's words exactly."""
+    lw, gw, gm, nblk, slot_recs, max_win = garbage_planes(seed)
+    kw = dict(nblk=nblk, slot_recs=slot_recs, max_win=max_win,
+              out_rows=max_win * pipeline.DBK.WIN_ROWS)
+    got = PG.decode_gang_batch(*planes_to_torch(lw, gw, gm, device="cuda"),
+                               **kw)
+    ref = PG.decode_gang_batch(*planes_to_torch(lw, gw, gm, device="cpu"),
+                               **kw)
+    assert torch.equal(got.cpu(), ref)
+    assert ref.any()
+
+
+@pytest.fixture(scope="module")
+def class_payloads(native):
+    blocks = class_blocks()
+    return blocks, [(native.compress(d, True, level=1)[19:], True)
+                    for d in blocks]
+
+
+@pytest.mark.parametrize("nblk", [1, 2, 3])
+def test_gang_kernel_full_class_blocks_match_plain(class_payloads, nblk):
+    """One full level-1 block of each of the eight classes, at the slot
+    size the pipeline's table gives each width."""
+    blocks, pe = class_payloads
+    slot_recs = pipeline.GANG_SRECS[nblk]
+    lw, gw, gm, sizes = PG.prep_gang(pe, nblk, slot_recs)
+    got = PG.decode_gang_batch(*planes_to_torch(lw, gw, gm, device="cuda"),
+                               nblk=nblk, slot_recs=slot_recs)
+    ref = PG.decode_gang_batch(*planes_to_torch(lw, gw, gm, device="cpu"),
+                               nblk=nblk, slot_recs=slot_recs)
+    assert torch.equal(got.cpu(), ref)
+    for k, d in enumerate(blocks):
+        assert _words_bytes(ref, k, 0, sizes[k]) == d, f"block {k}"
 
 
 @pytest.mark.parametrize("ext", [True, False])

@@ -17,6 +17,8 @@ from turbosqueeze_tpu_torch.kernels import decode_gang as PG
 from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+from gang_streams import (CASES, DIFFERENCES,  # noqa: E402
+                          differing_words, hand_planes)
 from test_torch_host_copies import jax_core, port_core  # noqa: E402
 
 
@@ -107,3 +109,46 @@ def test_prep_gang_declines_like_reference(monkeypatch):
                             lambda payload, ext, dictionary=None: None)
     assert RG.prep_gang(pe, 1) is None
     assert PG.prep_gang(pe, 1) is None
+
+
+@pytest.mark.parametrize("slot_recs", [8, 16, 32])
+@pytest.mark.parametrize("case", list(CASES))
+def test_hand_built_streams_match_reference(case, slot_recs):
+    """Overlapping records, a gang reading its own row, odd segment bounds:
+    the plain version gives the interpreted kernel's bytes exactly."""
+    lw, gw, gm, n_win = hand_planes(case, slot_recs)
+    ref = np.asarray(RG.decode_gang_batch(lw, gw, gm, nblk=1, unroll=1,
+                                          interpret=True,
+                                          slot_recs=slot_recs))
+    got = PG.decode_gang_batch(*planes_to_torch(lw, gw, gm, device="cpu"),
+                               nblk=1, unroll=1, slot_recs=slot_recs).numpy()
+    n = n_win * (1 << 21)
+    want = ref.reshape(-1).view("u1")[:n]
+    assert want.any()
+    assert np.array_equal(got.reshape(-1).view("u1")[:n], want)
+    assert not got.reshape(-1).view("u1")[n:].any()
+
+
+@pytest.mark.parametrize("slot_recs", [8, 16, 32])
+@pytest.mark.parametrize("case", list(DIFFERENCES))
+def test_documented_differences_from_reference(case, slot_recs):
+    """The port's deliberate differences from the interpreted kernel
+    (ROADMAP §3, "Open"): a source outside the planes the kernels write
+    reads zeros in the port and unwritten scratch in the reference; a
+    round past the stream does nothing in the port and replays the
+    stream's last 8-row chunk in the reference. The two differ on exactly
+    the listed words, where the port's are zero and the reference's not."""
+    lw, gw, gm, n_win = hand_planes(case, slot_recs)
+    ref = np.asarray(RG.decode_gang_batch(lw, gw, gm, nblk=1, unroll=1,
+                                          interpret=True,
+                                          slot_recs=slot_recs))
+    got = PG.decode_gang_batch(*planes_to_torch(lw, gw, gm, device="cpu"),
+                               nblk=1, unroll=1, slot_recs=slot_recs).numpy()
+    n = n_win * (1 << 19)  # words of the decoded windows
+    ref, got = ref.reshape(-1)[:n], got.reshape(-1)
+    differ = np.zeros(n, bool)
+    differ[differing_words(case, slot_recs)] = True
+    assert got[:n][~differ].any()
+    assert np.array_equal(got[:n][~differ], ref[~differ])
+    assert not got[:n][differ].any() and ref[differ].all()
+    assert not got[n:].any()

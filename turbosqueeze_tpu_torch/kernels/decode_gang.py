@@ -1,9 +1,10 @@
 """Gang-stream decode: executes the fixed-geometry record stream of
 ``csrc/tsq_gang.cpp`` (``native.bulk_gang``) into decoded block words.
 
-On a CUDA tensor ``decode_gang_batch`` launches the Hopper kernel
-``csrc/decode_gang.cu``; on a CPU tensor it runs the plain PyTorch version
-beside it. Both compute what the Pallas kernel
+On a CUDA tensor ``decode_gang_batch`` launches the Hopper kernels of
+``csrc/decode_gang.cu`` (per window, the U gangs across the grid, then
+each block's W gangs on one warp); on a CPU tensor it runs the plain
+PyTorch version beside it. Both compute what the Pallas kernel
 ``turbosqueeze_tpu/kernels/decode_gang.py::_decode_gang_kernel`` computes.
 
 The stream. A gang is ``slot_recs`` records for one 512-byte output row;
@@ -23,7 +24,12 @@ segment, whose sources are ``[130-row tail of window w-1 | literal
 plane]``; the rounds up to ``gmeta[17 + 2w]`` form the W segment, whose
 sources are rows of window ``w`` that earlier gangs finished. The stream
 writes every in-size output byte exactly once, so a zeroed output plus ORs
-is the decode.
+is the decode. Records that overlap (never in a real stream) are ORed
+together, and a W gang reads all of its sources before it writes its row,
+as the Pallas kernel's row accumulator does. A source outside the planes
+reads zeros and a round past the stream's end does nothing; on such
+streams (never in a real one) the Pallas kernel reads scratch that nothing
+wrote, or replays the stream's last 8-row chunk.
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ GANG_WORDS = 16      # words per 8-record slot (2 per record)
 GMETA_WORDS = 32     # csrc kGangMetaWords: sizes [0..7], n_win [8..15],
 #                      segment bounds [16+2w]/[17+2w], rounds [30], nblk [31]
 
-# kernel launches since the count was last reset (a CPU call is not one)
+# wrapper calls that launched the kernels since the count was last reset
+# (a CPU call is not one)
 launches = 0
 
 
@@ -100,8 +107,9 @@ def _launch(lit_words, gang_words, gmeta, nblk, out_rows, max_win,
     global launches
     lit_words, gang_words, gmeta = (t.contiguous() for t in
                                     (lit_words, gang_words, gmeta))
-    if gang_words.data_ptr() % 16:
-        raise ValueError("gang_words must be 16-byte aligned")
+    for name, t in (("lit_words", lit_words), ("gang_words", gang_words)):
+        if t.data_ptr() % 16:  # the kernels read them 16 bytes at a time
+            raise ValueError(f"{name} must be 16-byte aligned")
     B, lit_rows, _ = lit_words.shape
     lib = _build.library()
     with torch.cuda.device(lit_words.device):
@@ -130,11 +138,12 @@ def _u32(t: torch.Tensor) -> torch.Tensor:
 def _segment_bytes(words: torch.Tensor, r0: int, r1: int, nblk: int, k: int,
                    slot_recs: int):
     """Every output byte the gangs of block ``k`` in rounds [r0, r1)
-    write, in stream order: (dst, src, fill, byte, gang_end, r_end).
+    write, in stream order: (dst, src, fill, byte, gang_end, dups, r_end).
     ``dst`` is a window byte address, ``src`` a byte address in the
     segment's source plane; ``gang_end[i]`` is the number of bytes gangs
-    0..i write. Rounds past the stream's own end are dropped; ``r_end`` is
-    where the next segment starts."""
+    0..i write, and ``dups`` the gangs that write one byte twice. Rounds
+    past the stream's own end are dropped; ``r_end`` is where the next
+    segment starts."""
     gw = 2 * slot_recs
     r1 = max(r0, min(r1, words.numel() // (nblk * gw)))
     rounds = torch.arange(r0, r1, dtype=torch.int64)
@@ -153,7 +162,20 @@ def _segment_bytes(words: torch.Tensor, r0: int, r1: int, nblk: int, k: int,
     fill = (w1 >> 31)[rec] == 1
     byte = (w1 & 0xFF)[rec].to(torch.uint8)
     gang_end = torch.cumsum(n.reshape(-1, slot_recs).sum(1), 0)
-    return dst, src, fill, byte, gang_end, r1
+    key = torch.sort((rec // slot_recs) * WIN_BYTES + dst).values
+    dups = torch.unique(key[1:][key[1:] == key[:-1]] // WIN_BYTES)
+    return dst, src, fill, byte, gang_end, set(dups.tolist()), r1
+
+
+def _or_at(plane: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor):
+    """plane[idx] |= vals, ORing together the values of an index that
+    repeats (an index put would keep only one of them): one scatter-max
+    per bit plane."""
+    acc = torch.zeros_like(plane)
+    for bit in range(8):
+        acc |= torch.zeros_like(plane).scatter_reduce_(
+            0, idx, (vals >> bit) & 1, "amax") << bit
+    plane |= acc
 
 
 def _gather(plane: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
@@ -176,26 +198,32 @@ def _decode_gang_plain(lit_words, gang_words, gmeta, *, nblk, out_rows,
         for w in range(min(meta[8 + k], max_win)):
             win = out[b, w * WIN_BYTES:(w + 1) * WIN_BYTES]
             # U segment: gangs read only the never-written U plane, so
-            # they apply as one scatter (no byte is written twice)
+            # they apply as one scatter that ORs every record's bytes
             tail = (out[b, w * WIN_BYTES - TAIL_BYTES:w * WIN_BYTES] if w
                     else torch.zeros(TAIL_BYTES, dtype=torch.uint8))
             uplane = torch.cat([tail, lit_bytes[b]])
-            dst, src, fill, byte, _, r = _segment_bytes(
+            dst, src, fill, byte, _, _, r = _segment_bytes(
                 words, r, meta[16 + 2 * w], nblk, k, slot_recs)
-            win[dst] |= torch.where(fill, byte, _gather(uplane, src))
+            _or_at(win, dst, torch.where(fill, byte, _gather(uplane, src)))
             # W segment: a gang reads rows that earlier gangs finished,
-            # so gangs apply one at a time, in stream order
-            dst, src, fill, byte, ends, r = _segment_bytes(
+            # so gangs apply one at a time, in stream order, each reading
+            # all of its sources before it writes its row
+            dst, src, fill, byte, ends, dups, r = _segment_bytes(
                 words, r, meta[17 + 2 * w], nblk, k, slot_recs)
             gather = ~fill & (src < WIN_BYTES)  # else the fill byte, or 0
             byte = torch.where(fill, byte, torch.zeros_like(byte))
             src = torch.where(gather, src, 0)
             lo = 0
-            for hi in ends.tolist():
+            for i, hi in enumerate(ends.tolist()):
                 if hi > lo:
                     s = slice(lo, hi)
-                    win[dst[s]] |= torch.where(gather[s], win[src[s]],
-                                               byte[s])
+                    vals = torch.where(gather[s], win[src[s]], byte[s])
+                    if i in dups:  # its records overlap: OR them in its row
+                        row0 = int(dst[lo]) // ROW_BYTES * ROW_BYTES
+                        _or_at(win[row0:row0 + ROW_BYTES], dst[s] - row0,
+                               vals)
+                    else:
+                        win[dst[s]] |= vals
                 lo = hi
     return out.view(torch.int32).reshape(B, out_rows, LANES)
 
