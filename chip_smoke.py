@@ -31,8 +31,10 @@ Phases:
   4. the stream route end to end on a 64 MiB container;
   5. the emit kernel against its plain version and the native core, both
      matchers, ext on and off, mixed blocks (a full random block, a short
-     and an empty one), a dictionary base, and one full 4 MiB block per
-     matcher, timed;
+     and an empty one), a dictionary base, and the full block of each of
+     the eight classes, one a launch: timed per class, with its symbols,
+     the positions its literal scan steps over and its bound (block 1,
+     pydoc, is the kernel's timed row);
   6. compress end to end: the 256 MiB input of phase 3 at levels 0, 1 and
      2, each container byte-identical to the native core's and decoded
      back on the card; timed, with its layers timed apart; then its first
@@ -75,6 +77,14 @@ and the least time the card could take for those bytes) and the device
 line. Run from the repository root:
 
     python3 chip_smoke.py
+
+``python3 chip_smoke.py --emit-only [--ab ROOT ...]`` builds the kernels
+and runs only phase 5's class blocks and the emit kernel on phase 6's two
+windows at levels 0 and 1; with ``--ab``, the kernels of each other
+checkout ``ROOT`` (``ROOT/turbosqueeze_tpu_torch/kernels/csrc``, for
+instance the parent commit unpacked by ``git archive``) run there too,
+and on the pydoc block the decide and flat decide kernels: each held to
+this tree's outputs and timed in turns with it.
 """
 
 from __future__ import annotations
@@ -395,6 +405,39 @@ def _cuda_kernels(fn):
     return dict(collections.Counter(names)) if names else None
 
 
+def _plain_pool(n: int):
+    """Worker processes for plain versions (each a Python walk on one
+    core), started fresh: the card's process does not fork."""
+    import multiprocessing
+
+    return multiprocessing.get_context("spawn").Pool(min(8, n))
+
+
+def _plain_bulk(args):
+    """The bulk kernel's plain version on host planes, in a worker:
+    (words, milliseconds)."""
+    from turbosqueeze_tpu_torch.kernels import decode_bulk as DB
+
+    torch.set_num_threads(1)
+    abi, nblk, planes = args
+    t0 = time.perf_counter()
+    words = DB.decode_bulk(abi, nblk, *(torch.from_numpy(p) for p in planes))
+    return words.numpy(), (time.perf_counter() - t0) * 1e3
+
+
+def _plain_gang(args):
+    """The gang kernel's plain version on one block's host planes, in a
+    worker: (words, milliseconds)."""
+    from turbosqueeze_tpu_torch.kernels import decode_gang as DG
+
+    torch.set_num_threads(1)
+    planes, srecs = args
+    t0 = time.perf_counter()
+    words = DG.decode_gang_batch(*(torch.from_numpy(p) for p in planes),
+                                 nblk=1, slot_recs=srecs)
+    return words.numpy(), (time.perf_counter() - t0) * 1e3
+
+
 def _gang_classes(errs, timing, data, stream, dev, planes, srecs):
     """The gang kernel on each class's full block (blocks 0-7 of the first
     window of the level-1 ``stream``, at the main path's plane shapes and
@@ -413,9 +456,23 @@ def _gang_classes(errs, timing, data, stream, dev, planes, srecs):
     with ThreadPoolExecutor() as pool:  # each block's own literal bytes
         preps = DB.resolve_blocks([(stream[o:o + n], e) for o, n, e
                                    in table[:len(CLASSES)]], pool.map)
-    for b, name in enumerate(CLASSES):
-        blk = [t[b:b + 1] for t in dev]
-        blk_h = [t.cpu() for t in blk]
+    # the plain versions, a Python walk each, run in workers meanwhile
+    with _plain_pool(len(CLASSES)) as pool:
+        plain = pool.map_async(_plain_gang, [
+            ([t[b:b + 1].cpu().numpy() for t in dev], srecs)
+            for b in range(len(CLASSES))])
+        runs = []
+        for b in range(len(CLASSES)):
+            blk = [t[b:b + 1] for t in dev]
+            ms = _cuda_ms(lambda: gang(blk), 5)
+            got = []
+            kernels = _cuda_kernels(lambda: got.append(gang(blk)))
+            launched = ("not measured" if kernels is None else
+                        sum(n for k, n in kernels.items() if "gang_" in k))
+            runs.append((blk, ms, got[0], launched))
+        plain = plain.get()
+    for b, (name, (blk, ms, got, launched), (ref, plain_ms)) in enumerate(
+            zip(CLASSES, runs, plain)):
         meta = planes[2][b].view(np.uint32)
         r, u, w = 0, [], []
         for win in range(int(meta[8])):
@@ -423,29 +480,23 @@ def _gang_classes(errs, timing, data, stream, dev, planes, srecs):
             r = max(r, int(meta[16 + 2 * win]))
             w.append(max(0, int(meta[17 + 2 * win]) - r))
             r = max(r, int(meta[17 + 2 * win]))
-        size, ref = planes[3][b], []
-        ms = _cuda_ms(lambda: gang(blk), 5)
-        plain_ms = _host_ms(lambda: ref.append(gang(blk_h)), 1)
-        got = []
-        kernels = _cuda_kernels(lambda: got.append(gang(blk)))
-        launched = ("not measured" if kernels is None else
-                    sum(n for k, n in kernels.items() if "gang_" in k))
-        _compare(errs, "decode_gang", _bytes_of(got[0], 0, 0, size),
-                 _bytes_of(ref[0], 0, 0, size),
+        size = planes[3][b]
+        _compare(errs, "decode_gang", _bytes_of(got, 0, 0, size),
+                 _bytes_of(torch.from_numpy(ref), 0, 0, size),
                  data[b * 4 * MiB:b * 4 * MiB + size],
                  f"gang full block, {name}")
         # the bytes the block's work needs, each once: its own literals,
         # its gang stream to its last segment bound, its meta and output
         lit_b = len(preps[b][0])
         rec_b = min(r, int(meta[30])) * 2 * srecs * 4
-        moved = lit_b + rec_b + _nbytes(blk[2], got[0])
+        moved = lit_b + rec_b + _nbytes(blk[2], got)
         if b == 0:
             timing["decode_gang"] = (ms, plain_ms, moved)
         say("phase3", gang_block=name, u_gangs="/".join(map(str, u)),
             w_gangs="/".join(map(str, w)), kernel_ms=f"{ms:.4f}",
             ms_per_gang=f"{ms / max(1, sum(u) + sum(w)):.6f}",
             cuda_launches_per_call=launched, plain_ms=f"{plain_ms:.1f}",
-            lit_bytes=lit_b, rec_bytes=rec_b, out_bytes=_nbytes(got[0]),
+            lit_bytes=lit_b, rec_bytes=rec_b, out_bytes=_nbytes(got),
             bound_ms=f"{moved / HBM_BYTES_PER_MS:.6f}", exact=True)
 
 
@@ -668,24 +719,243 @@ def phase5(errs, timing):
                   f"dict ext={ext} block {b}: kernel != native")
         say("phase5", matcher="cand", dictionary=len(d), ext=ext, exact=True)
 
-    # one full text block per matcher, B=1, at the main path's shapes
-    full = _e2e_input(2)[4 * MiB:]
-    x = torch.from_numpy(np.frombuffer(full, np.uint8).copy())[None].cuda()
+    _emit_classes(errs, timing)
+    # phase A on one full block (pydoc), B=1
+    x = torch.from_numpy(np.frombuffer(_e2e_input(2)[4 * MiB:], np.uint8)
+                         .copy())[None].cuda()
     phase_a_ms = _cuda_ms(lambda: EX.find_candidates(x), 5)
-    for matcher in ("table", "cand"):
-        planes = _emit_planes([full], cand=matcher == "cand")
-        dev = [None if p is None else p.cuda() for p in planes]
-        ms = _cuda_ms(lambda: EE.emit_batch(*dev, matcher=matcher), 3)
-        got, plain_ms = _emit_compare(errs, planes, True, matcher,
-                                      f"{matcher} full block")
-        timing[f"encode_emit_{matcher}"] = (
-            ms, plain_ms, _nbytes(*dev, *EE.emit_batch(*dev, matcher=matcher)))
-        check(got[0] == want(full, True, matcher),
-              f"{matcher} full block: kernel != native")
-        say("phase5", matcher=matcher, full_block=True, exact=True,
-            kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.1f}",
-            payload=len(got[0]))
     say("phase5", phase_a_ms_per_block=f"{phase_a_ms:.4f}")
+
+
+def _plain_emit(args):
+    """The emit kernel's plain version on one block's host planes, in a
+    worker process: (payload, osz row, milliseconds)."""
+    import torch
+    from turbosqueeze_tpu_torch.kernels import encode_emit as EE
+
+    torch.set_num_threads(1)
+    planes, ext, matcher = args
+    t0 = time.perf_counter()
+    words, osz = EE.emit_batch(*(None if p is None else torch.from_numpy(p)
+                                 for p in planes), ext=ext, matcher=matcher)
+    ms = (time.perf_counter() - t0) * 1e3
+    return EE.payload_from_words(words[0], int(osz[0, 0])), osz.numpy(), ms
+
+
+def _emit_moved(payload: bytes, ext: bool, matcher: str, size: int,
+                base: int = 0) -> dict:
+    """What one block's parse needs, from its payload's symbols (the
+    native tokenizer): literal bytes (the positions the literal scan
+    steps over), matches, literal stretches, and the bytes the parse must
+    move, each once: the meta and osz rows, the input, the payload, and
+    for ``cand`` one candidate word per parse stop (each match and each
+    literal stretch), for ``table`` the 256 KiB table zeroed and one
+    2-byte entry read and written per probe (each literal byte and each
+    match end)."""
+    from turbosqueeze_tpu_torch.format import HASH_ENTRIES
+    from turbosqueeze_tpu_torch.runtime import native
+
+    _, _, ln, lit, _ = native.tokenize_block(payload, ext, base)
+    lit = lit.astype(bool)
+    st = {"symbols": len(lit), "lit_bytes": int(ln[lit].sum()),
+          "matches": int((~lit).sum()),
+          "stretches": int(lit[:1].sum() + (lit[1:] & ~lit[:-1]).sum())}
+    moved = 32 + base + size + len(payload) + 32
+    if matcher == "cand":
+        moved += 4 * (st["matches"] + st["stretches"])
+    else:
+        moved += 2 * HASH_ENTRIES + 4 * (st["lit_bytes"] + st["matches"])
+    st["bytes"] = moved
+    return st
+
+
+def _ab_libraries(roots) -> dict:
+    """The kernel libraries of other checkouts (``ROOT/
+    turbosqueeze_tpu_torch/kernels/csrc``), built with the port's flags
+    into ``build/cuda/ab/<name>/``, all at once, and loaded: the other
+    sides of an A/B run, by the checkout's directory name."""
+    from turbosqueeze_tpu_torch.kernels import _build
+
+    roots = list(roots)
+    paths = [_build.LIB_PATH.parent / "ab" / r.name / _build.LIB_PATH.name
+             for r in roots]
+    with ThreadPoolExecutor(len(roots)) as pool:
+        list(pool.map(lambda r, p: _build.build(
+            r / "turbosqueeze_tpu_torch/kernels/csrc", p), roots, paths))
+    return {r.name: _build.load(p) for r, p in zip(roots, paths)}
+
+
+def _with(lib, fn):
+    """``fn()`` with the port's wrappers launching ``lib``'s kernels."""
+    from turbosqueeze_tpu_torch.kernels import _build
+
+    saved = _build.library()
+    _build._lib = lib
+    try:
+        return fn()
+    finally:
+        _build._lib = saved
+
+
+def _ab_ms(fns: dict, reps=3) -> dict:
+    """Each ``fns`` entry timed in turns, forward then backward (a, b, ...,
+    b, a), each the median of ``reps``: {name: [two times]}."""
+    t = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        t[k].append(_cuda_ms(fns[k], reps))
+    return t
+
+
+def _emit_classes(errs, timing, others=None):
+    """The emit kernel on each class's full block (``class_blocks``), one
+    block a launch (B = 1, the main path's plane shapes), both matchers:
+    held to its plain version (worker processes) and to the native core,
+    ext on and off; its time (ext on, median of 3), symbols, ms a symbol,
+    the positions the literal scan steps over and the bound from what the
+    parse needs (``_emit_moved``). Block 1 (pydoc) is the kernel's timed
+    row. With ``others`` (other checkouts' kernel libraries by name) each
+    class is also run on each (held to this kernel's payload, ext on) and
+    timed, in turns with this one ("new")."""
+    from gang_streams import CLASSES
+    from turbosqueeze_tpu_torch.format import iter_container
+    from turbosqueeze_tpu_torch.kernels import _build
+    from turbosqueeze_tpu_torch.kernels import encode_emit as EE
+    from turbosqueeze_tpu_torch.runtime import native
+
+    blocks = _e2e_input(len(CLASSES))
+    blocks = [blocks[b * 4 * MiB:(b + 1) * 4 * MiB]
+              for b in range(len(CLASSES))]
+    matchers, exts = ("table", "cand"), (True, False)
+    planes = {m: [None if p is None else p.cuda()
+                  for p in _emit_planes(blocks, cand=m == "cand")]
+              for m in matchers}
+    keys = [(m, ext, b) for m in matchers for ext in exts
+            for b in range(len(blocks))]
+    # the plain versions, a Python walk each, run in workers meanwhile
+    with _plain_pool(len(keys)) as pool:
+        plain = pool.map_async(_plain_emit, [
+            ([None if p is None else p[b:b + 1].cpu().numpy()
+              for p in planes[m]], ext, m) for m, ext, b in keys])
+        got = {(m, ext): EE.emit_batch(*planes[m], ext=ext, matcher=m)
+               for m in matchers for ext in exts}
+        ms, ab = {}, {}
+        for m in matchers:
+            for b in range(len(blocks)):
+                blk = [None if p is None else p[b:b + 1] for p in planes[m]]
+                ms[m, b] = _cuda_ms(lambda: EE.emit_batch(*blk, matcher=m),
+                                    3)
+                if not others:
+                    continue
+                libs = {**others, "new": _build.library()}
+                runs = {k: (lambda lib=lib: _with(lib, lambda: EE.emit_batch(
+                    *blk, matcher=m))) for k, lib in libs.items()}
+                want = EE.payload_from_words(got[m, True][0][b],
+                                             int(got[m, True][1][b, 0]))
+                for k in others:
+                    o, osz = runs[k]()
+                    check(EE.payload_from_words(o[0], int(osz[0, 0]))
+                          == want, f"A/B {k}: {m} {CLASSES[b]} != this "
+                          "kernel's")
+                ab[m, b] = {f"{k}_ms": "/".join(f"{x:.4f}" for x in v)
+                            for k, v in _ab_ms(runs).items()}
+        plain = dict(zip(keys, plain.get()))
+    for m in matchers:
+        for ext in exts:
+            words, gsz = got[m, ext]
+            gsz = gsz.cpu()
+            for b, blk in enumerate(blocks):
+                ref, rsz, _ = plain[m, ext, b]
+                n = int(gsz[b, 0])
+                check(n == int(rsz[0, 0]) and not gsz[b, 1:].any(),
+                      f"{m} ext={ext} {CLASSES[b]}: osz {n} != plain "
+                      f"{int(rsz[0, 0])}")
+                g = EE.payload_from_words(words[b], n)
+                diff = np.abs(np.frombuffer(g, np.uint8).astype(np.int16)
+                              - np.frombuffer(ref, np.uint8).astype(np.int16))
+                errs[f"encode_emit_{m}"] = max(errs[f"encode_emit_{m}"],
+                                               int(diff.max()))
+                check(g == ref, f"{m} ext={ext} {CLASSES[b]}: kernel != "
+                      "plain")
+                nat = (native.encode_block_candidates(
+                    blk, native.build_candidates(blk), ext)
+                       if m == "cand" else next(iter_container(
+                           native.compress(blk, ext, level=0)))[1])
+                check(g == nat, f"{m} ext={ext} {CLASSES[b]}: kernel != "
+                      "native")
+            say("phase5", matcher=m, ext=ext, class_blocks=len(blocks),
+                exact=True)
+        for b, name in enumerate(CLASSES):
+            payload, _, plain_ms = plain[m, True, b]
+            st = _emit_moved(payload, True, m, len(blocks[b]))
+            if b == 1:
+                timing[f"encode_emit_{m}"] = (ms[m, b], plain_ms,
+                                              st["bytes"])
+            say("phase5", matcher=m, emit_block=name,
+                kernel_ms=f"{ms[m, b]:.4f}", symbols=st["symbols"],
+                ms_per_symbol=f"{ms[m, b] / max(1, st['symbols']):.7f}",
+                scan_positions=st["lit_bytes"], matches=st["matches"],
+                stretches=st["stretches"], bytes=st["bytes"],
+                bound_ms=f"{st['bytes'] / HBM_BYTES_PER_MS:.6f}",
+                plain_ms=f"{plain_ms:.1f}", **ab.get((m, b), {}))
+
+
+def _emit_windows(others=None):
+    """The emit kernel on both 32-block windows of phase 6's input at
+    levels 0 (``table``) and 1 (``cand``, phase A on the card), ms per
+    window (one launch each, as phase 6); with ``others`` (kernel
+    libraries by name) also on each, in turns with this one ("new")."""
+    from turbosqueeze_tpu_torch.format import split_blocks
+    from turbosqueeze_tpu_torch.kernels import _build
+    from turbosqueeze_tpu_torch.kernels import encode_emit as EE
+    from turbosqueeze_tpu_torch.parallel import pipeline
+
+    blocks = split_blocks(_e2e_input(64))
+    wins = [blocks[lo:lo + pipeline.WINDOW_BLOCKS]
+            for lo in range(0, len(blocks), pipeline.WINDOW_BLOCKS)]
+    libs = {**(others or {}), "new": _build.library()}
+    res = {}
+    for win in wins:
+        batch = pipeline._upload_window(win, None, torch.device("cuda"))
+        for level, matcher in ((0, "table"), (1, "cand")):
+            cands = pipeline._phase_a(batch, win, 0) if level else None
+            planes = pipeline.emit_planes(batch, cands, win, 0)
+            t = _ab_ms({k: (lambda lib=lib, planes=planes, matcher=matcher:
+                            _with(lib, lambda: EE.emit_batch(
+                                *planes, matcher=matcher)))
+                        for k, lib in libs.items()}, 1)
+            for side, v in t.items():
+                res.setdefault((level, side), []).append(v)
+        del batch
+    for (level, side), v in sorted(res.items()):
+        say("phase5", level=level, kernel=side, emit_ms_per_window="/".join(
+            "+".join(f"{x:.2f}" for x in w) for w in v))
+
+
+def _decide_ab(others):
+    """The decide and flat decide kernels, which share the candidate
+    parse, on the pydoc block (phase 9's timed row) with this library and
+    each of ``others``, in turns: held to this one's planes, ms each."""
+    from turbosqueeze_tpu_torch.kernels import _build
+    from turbosqueeze_tpu_torch.kernels import encode_bulk as EB
+    from turbosqueeze_tpu_torch.kernels import encode_flat as EF
+
+    iw, cw, meta = (p.cuda() for p in _emit_planes([_e2e_input(2)[4 * MiB:]]))
+    nv = EB.next_valid(cw)
+    libs = {**others, "new": _build.library()}
+    for name, fn in (("encode_decide",
+                      lambda: EB.decide_batch(iw, cw, nv, meta)),
+                     ("encode_flat_decide",
+                      lambda: EF.flat_decide_batch(iw, cw, nv, meta))):
+        runs = {k: (lambda lib=lib, fn=fn: _with(lib, fn))
+                for k, lib in libs.items()}
+        want = [t.cpu() for t in runs["new"]()]
+        for k in others:
+            check(all(torch.equal(g.cpu(), r)
+                      for g, r in zip(runs[k](), want)),
+                  f"A/B {k}: {name} != this library's")
+        t = _ab_ms(runs)
+        say("phase9", kernel=name, full_block=True, **{
+            f"{k}_ms": "/".join(f"{x:.4f}" for x in v) for k, v in t.items()})
 
 
 def phase6(counts):
@@ -1066,14 +1336,19 @@ def _bulk_full_group(errs, timing, data, stream):
     fprep = wprep[:max(width, 2)]
     del wprep
     sizes = [int(p[2][0]) for p in fprep]
-    for abi, nblk in (("bulk", 1), ("bulk2", 2), ("bulkn", width)):
-        planes = DB.pack_batch(fprep, abi, nblk)[:3]
-        dev = planes_to_torch(*planes, device="cuda")
-        host = planes_to_torch(*planes, device="cpu")
-        ms = _cuda_ms(lambda: DB.decode_bulk(abi, nblk, *dev), 5)
-        t0 = time.perf_counter()
-        ref = DB.decode_bulk(abi, nblk, *host)
-        plain_ms = (time.perf_counter() - t0) * 1e3
+    abis = (("bulk", 1), ("bulk2", 2), ("bulkn", width))
+    packed = [DB.pack_batch(fprep, abi, nblk)[:3] for abi, nblk in abis]
+    devs = [planes_to_torch(*planes, device="cuda") for planes in packed]
+    # the plain versions, a Python walk each, run at once in workers
+    with _plain_pool(len(abis)) as pool:
+        plain = pool.map_async(_plain_bulk, [
+            (abi, nblk, planes) for (abi, nblk), planes in zip(abis, packed)])
+        ms_of = [_cuda_ms(lambda: DB.decode_bulk(abi, nblk, *dev), 5)
+                 for (abi, nblk), dev in zip(abis, devs)]
+        plain = plain.get()
+    for (abi, nblk), planes, dev, ms, (ref, plain_ms) in zip(
+            abis, packed, devs, ms_of, plain):
+        ref = torch.from_numpy(ref)
         got = DB.decode_bulk(abi, nblk, *dev)
         for k, size in enumerate(sizes):
             _compare(errs, f"decode_{abi}", _bytes_of(got, k, 0, size),
@@ -1092,7 +1367,7 @@ def _bulk_full_group(errs, timing, data, stream):
             exact=True, kernel_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.1f}",
             lit_bytes=lit_b, rec_bytes=rec_b, meta_bytes=_nbytes(dev[2]),
             out_bytes=_nbytes(got), bound_ms=f"{moved / HBM_BYTES_PER_MS:.6f}")
-        del dev, host, got, ref
+        del dev, got, ref
 
 
 def phase8(errs, counts, timing, data, streams):
@@ -1567,6 +1842,20 @@ def main() -> int:
     errs = dict.fromkeys(KERNELS, 0)
     counts = dict.fromkeys(KERNELS, 0)
     timing = {}
+    if "--emit-only" in sys.argv:  # [--ab ROOT...]: the emit kernel's
+        # classes and windows, A/B against other checkouts' kernels
+        args = sys.argv[1:]
+        others = (_ab_libraries(map(Path, args[args.index("--ab") + 1:]))
+                  if "--ab" in args else None)
+        _emit_classes(errs, timing, others)
+        _emit_windows(others)
+        if others:
+            _decide_ab(others)
+        say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     phase1(errs)
     phase2(errs)
     data, streams = phase3(errs, counts, timing)

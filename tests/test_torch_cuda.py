@@ -29,7 +29,8 @@ from turbosqueeze_tpu_torch.utils.corpus import (synthetic_binary,
                                                  synthetic_text)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from gang_streams import (CASES, DIFFERENCES,  # noqa: E402
+from emit_cases import table_cases  # noqa: E402
+from gang_streams import (CASES, CLASSES, DIFFERENCES,  # noqa: E402
                           class_blocks, garbage_planes, hand_planes)
 
 pytestmark = pytest.mark.cuda
@@ -211,6 +212,57 @@ def test_emit_kernel_matches_plain(native, matcher, ext):
             else:
                 want = next(iter_container(native.compress(b, ext, 0)))[1]
             assert payload == want, f"block {k}"
+
+
+def _emit_both(native, blocks, matcher, ext, launches=1):
+    """The emit kernel (``launches`` times) and its plain version on
+    ``blocks``; asserts every launch equals the plain version and the
+    native core (level 0 for ``table``, level 1 for ``cand``)."""
+    cand = matcher == "cand"
+    planes = [np.stack([PE.pack_input_words(b) for b in blocks]),
+              np.stack([PE.pack_cand_words(native.build_candidates(b))
+                        for b in blocks]) if cand else None,
+              PE.pack_meta([len(b) for b in blocks])]
+    dev = [None if p is None else torch.from_numpy(p).cuda() for p in planes]
+    ref, rsz = PE.emit_batch(*(None if p is None else torch.from_numpy(p)
+                               for p in planes), ext=ext, matcher=matcher)
+    want = [PE.payload_from_words(ref[k], int(rsz[k, 0]))
+            for k in range(len(blocks))]
+    for k, b in enumerate(blocks):
+        assert want[k] == (native.encode_block_candidates(
+            b, native.build_candidates(b), ext) if cand else
+            next(iter_container(native.compress(b, ext, 0)))[1]), k
+    for _ in range(launches):
+        got, gsz = PE.emit_batch(*dev, ext=ext, matcher=matcher)
+        assert torch.equal(gsz.cpu(), rsz)
+        assert [PE.payload_from_words(got[k], int(rsz[k, 0]))
+                for k in range(len(blocks))] == want
+
+
+@pytest.fixture(scope="module")
+def full_class_blocks(native):
+    return class_blocks(len(CLASSES))
+
+
+@pytest.mark.parametrize("matcher", ["cand", "table"])
+@pytest.mark.parametrize("cls", range(len(CLASSES)), ids=CLASSES)
+def test_emit_kernel_class_blocks(native, full_class_blocks, cls, matcher):
+    """One full 4 MiB block of each class of ``chip_smoke.py``'s input,
+    ext on and off: kernel, plain version and native core agree."""
+    blk = full_class_blocks[cls]
+    for ext in (True, False):
+        _emit_both(native, [blk], matcher, ext)
+
+
+@pytest.mark.parametrize("matcher", ["cand", "table"])
+@pytest.mark.parametrize("case", list(table_cases()))
+def test_emit_kernel_table_cases(native, case, matcher):
+    """``tests/emit_cases.py``'s hand-made blocks for the 32-lane batch,
+    50 launches each (a race between the lanes' table reads and stores
+    would show as a launch that differs), ext on and off."""
+    blocks = table_cases()[case]
+    for ext in (True, False):
+        _emit_both(native, blocks, matcher, ext, launches=50)
 
 
 def test_compress_matches_native(native):

@@ -4,6 +4,7 @@ JAX package's Pallas kernel (interpret mode), the native core's emission
 and the upstream parse. Tolerance zero: the first ``osz[b, 0]`` bytes of
 each block and ``osz`` itself must be equal."""
 
+import collections
 import subprocess
 import sys
 from pathlib import Path
@@ -191,3 +192,100 @@ def test_garbage_candidates_end(native):
     cw[0].view(-1)[1000:1100] = torch.arange(1000, 1100, dtype=torch.int32)
     _, osz = PE.emit_batch(iw, cw, meta)
     assert 5 < int(osz[0, 0]) < 2 * len(blk)
+
+
+# --- the warp kernel's premises (csrc/encode_emit.cu) ------------------------
+
+from emit_cases import table_batches, table_cases  # noqa: E402
+from gang_streams import CLASSES, class_blocks  # noqa: E402
+from turbosqueeze_tpu_torch.kernels.encode_bulk import next_valid  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def class_cuts():
+    """The eight classes of ``chip_smoke.py``'s input, each cut to 256
+    KiB."""
+    return [b[:1 << 18] for b in class_blocks(len(CLASSES))]
+
+
+def _parse_cand_both(block, cand, ext, dictionary=b""):
+    """``_parse_cand`` on ``dictionary + block`` with the next stop read
+    from ``next_valid(cand)`` and stepped one position at a time: both
+    (payload, osz)."""
+    d = len(dictionary)
+    planes = torch.from_numpy(PE.pack_input_words(dictionary + block)[None])
+    inp, v4 = PE.block_input(planes.view(torch.uint8).reshape(1, -1), 0, d,
+                             len(block))
+    # the plane's -1 padding past the block, as the kernels see it
+    nv = next_valid(torch.from_numpy(np.append(cand, -1))[None])[0].tolist()
+    cand = cand.tolist()
+    out = []
+    for skip in (nv, None):
+        buf = bytearray(PE.OUT_ROWS * 512)
+        sink = PE._TokenSink(buf, len(block), d)
+        PE._parse_cand(inp, v4, cand, sink, d, len(block), ext, nv=skip)
+        n = sink.finish()
+        out.append((bytes(buf[:n]), n))
+    return out
+
+
+@pytest.mark.parametrize("ext", [True, False])
+@pytest.mark.parametrize("cls", range(len(CLASSES)), ids=CLASSES)
+def test_cand_next_stop_premise(native, class_cuts, cls, ext):
+    """The warp kernel finds the next candidate stop by ballot over
+    ``cand[j] >= 0`` (next_valid's predicate) and jumps there: the jump
+    gives the same payload and size as stepping one position at a time,
+    and both give the native core's payload."""
+    blk = class_cuts[cls]
+    cand = native.build_candidates(blk)
+    jump, step = _parse_cand_both(blk, cand, ext)
+    assert jump == step
+    assert jump[0] == native.encode_block_candidates(blk, cand, ext)
+
+
+@pytest.mark.parametrize("ext", [True, False])
+def test_cand_next_stop_premise_dictionary_and_garbage(native, ext):
+    """The same on a dictionary base and on garbage candidate planes
+    (chains that do not decrease, entries past the block)."""
+    d = synthetic_text(33_000, seed=34)
+    blk = synthetic_text(60_000, seed=36) + bytes(3_000)
+    cand = native.build_candidates(d + blk)
+    jump, step = _parse_cand_both(blk, cand, ext, d)
+    assert jump == step
+    assert jump[0] == native.encode_block_dict(blk, d, cand, ext)
+    rng = np.random.default_rng(9)
+    blk = synthetic_text(40_000, seed=37)
+    cand = rng.integers(-3, 2 * len(blk), len(blk), dtype=np.int32)
+    cand[rng.random(len(blk)) < 0.5] = -1
+    cand[1000:1100] = np.arange(1000, 1100, dtype=np.int32)
+    jump, step = _parse_cand_both(blk, cand, ext)
+    assert jump == step
+
+
+# the batch rules each hand-made case must drive
+_CASE_EVENTS = {
+    "same_hash": ("forwarded", "shared_hash"),
+    "stop_lanes": tuple(f"stop_lane_{lane}" for lane in range(32)),
+    "flush_parity": ("flush_parity_0", "flush_parity_1", "near_anchor_0"),
+    "end_in_batch": ("end_in_batch", "past_end_found"),
+    "stale_alias": ("stale_found",),
+}
+
+
+@pytest.mark.parametrize("case", list(_CASE_EVENTS))
+def test_table_cases_match_native(native, case):
+    """``tests/emit_cases.py``'s hand-made blocks: ``"table"`` equals
+    native level 0, ext on and off; so does the model of the kernel's
+    32-lane batch, and the case drives the batch rules it is made for."""
+    blocks = table_cases()[case]
+    planes = _planes(native, blocks, cand=False)
+    events = collections.Counter()
+    for ext in (True, False):
+        want = [next(iter_container(native.compress(b, ext, level=0)))[1]
+                for b in blocks]
+        assert _port(planes, ext, "table") == want, ext
+        for b, w in zip(blocks, want):
+            got, ev = table_batches(b, ext)
+            assert got == w, ext
+            events.update(ev)
+    assert all(events[e] > 0 for e in _CASE_EVENTS[case]), events

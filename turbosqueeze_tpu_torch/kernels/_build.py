@@ -35,17 +35,17 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def build() -> str:
-    """Compile the library if it is missing or older than a source.
-    Returns the compiler's report (registers, spills per kernel), or ""
-    when the library was already current."""
-    srcs = [CSRC / s for s in SOURCES]
-    newest = max(f.stat().st_mtime for f in srcs + [CSRC / h for h in HEADERS])
-    if LIB_PATH.exists() and LIB_PATH.stat().st_mtime >= newest:
+def build(csrc: Path = CSRC, lib_path: Path = LIB_PATH) -> str:
+    """Compile the library from the sources in ``csrc`` if it is missing
+    or older than a source. Returns the compiler's report (registers,
+    spills per kernel), or "" when the library was already current."""
+    srcs = [csrc / s for s in SOURCES]
+    newest = max(f.stat().st_mtime for f in srcs + [csrc / h for h in HEADERS])
+    if lib_path.exists() and lib_path.stat().st_mtime >= newest:
         return ""
-    LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
-    objs = [LIB_PATH.with_name(f"{s.stem}.{tag}.o") for s in srcs]
+    objs = [lib_path.with_name(f"{s.stem}.{tag}.o") for s in srcs]
     # one nvcc per source, all at once: the build time is the slowest
     # source's, not the sum
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
@@ -58,14 +58,14 @@ def build() -> str:
             raise RuntimeError(f"nvcc failed on {s.name} ({p.returncode}):"
                                f"\n{err}")
         report.append(err)
-    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{tag}")
+    tmp = lib_path.with_name(f"{lib_path.name}.{tag}")
     r = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
                        capture_output=True, text=True)
     for o in objs:
         o.unlink()
     if r.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, LIB_PATH)  # atomic: a reader never sees a partial file
+    os.replace(tmp, lib_path)  # atomic: a reader never sees a partial file
     return "".join(report)
 
 
@@ -74,44 +74,49 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         build()
-        lib = ctypes.CDLL(str(LIB_PATH))
-        P, I = ctypes.c_void_p, ctypes.c_int
-        # lit, gang, gmeta, out, n_blocks, nblk, lit_rows, rec_rows,
-        # out_rows, max_win, slot_recs, stream
-        lib.tsq_decode_gang.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
-        lib.tsq_decode_gang.restype = I
-        # lit, rec, meta, out, n_blocks, nblk, lit_rows, rec_rows, out_rows,
-        # max_win, meta_words, nwin_base, end_base, stream
-        lib.tsq_decode_bulk.argtypes = [P, P, P, P, *[I] * 9, P]
-        lib.tsq_decode_bulk.restype = I
-        # input, side, rec, osz, out, n_blocks, in_rows, side_rows,
-        # rec_rows, out_rows, max_win, stream
-        lib.tsq_encode_assemble.argtypes = [P, P, P, P, P, *[I] * 6, P]
-        lib.tsq_encode_assemble.restype = I
-        # input, cand, nv, meta, side, rec, osz, n_blocks, in_rows,
-        # cand_rows, side_rows, rec_rows, ext, stream
-        lib.tsq_encode_decide.argtypes = [P] * 7 + [I] * 6 + [P]
-        lib.tsq_encode_decide.restype = I
-        # input, cand, nv, meta, desc, stats, n_blocks, in_rows, cand_rows,
-        # desc_rows, ext, stream
-        lib.tsq_encode_flat_decide.argtypes = [P] * 6 + [I] * 5 + [P]
-        lib.tsq_encode_flat_decide.restype = I
-        # payload, meta, dict, out, n_blocks, pay_rows, out_rows,
-        # dict_rows, stream
-        lib.tsq_decode_stream.argtypes = [P, P, P, P, I, I, I, I, P]
-        lib.tsq_decode_stream.restype = I
-        # payload, tok_a, tok_b, out, n_blocks, n_chunks, pay_rows,
-        # out_rows, stream
-        lib.tsq_decode_tokens.argtypes = [P, P, P, P, I, I, I, I, P]
-        lib.tsq_decode_tokens.restype = I
-        # input, cand, table, meta, out, osz, n_blocks, in_rows, cand_rows,
-        # out_rows, ext, table_mode, stream
-        lib.tsq_encode_emit.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
-        lib.tsq_encode_emit.restype = I
-        lib.tsq_cuda_error_string.argtypes = [I]
-        lib.tsq_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = load(LIB_PATH)
     return _lib
+
+
+def load(lib_path: Path) -> ctypes.CDLL:
+    """A built kernel library, loaded and its entry points typed."""
+    lib = ctypes.CDLL(str(lib_path))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    # lit, gang, gmeta, out, n_blocks, nblk, lit_rows, rec_rows,
+    # out_rows, max_win, slot_recs, stream
+    lib.tsq_decode_gang.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
+    lib.tsq_decode_gang.restype = I
+    # lit, rec, meta, out, n_blocks, nblk, lit_rows, rec_rows, out_rows,
+    # max_win, meta_words, nwin_base, end_base, stream
+    lib.tsq_decode_bulk.argtypes = [P, P, P, P, *[I] * 9, P]
+    lib.tsq_decode_bulk.restype = I
+    # input, side, rec, osz, out, n_blocks, in_rows, side_rows,
+    # rec_rows, out_rows, max_win, stream
+    lib.tsq_encode_assemble.argtypes = [P, P, P, P, P, *[I] * 6, P]
+    lib.tsq_encode_assemble.restype = I
+    # input, cand, nv, meta, side, rec, osz, n_blocks, in_rows,
+    # cand_rows, side_rows, rec_rows, ext, stream
+    lib.tsq_encode_decide.argtypes = [P] * 7 + [I] * 6 + [P]
+    lib.tsq_encode_decide.restype = I
+    # input, cand, nv, meta, desc, stats, n_blocks, in_rows, cand_rows,
+    # desc_rows, ext, stream
+    lib.tsq_encode_flat_decide.argtypes = [P] * 6 + [I] * 5 + [P]
+    lib.tsq_encode_flat_decide.restype = I
+    # payload, meta, dict, out, n_blocks, pay_rows, out_rows,
+    # dict_rows, stream
+    lib.tsq_decode_stream.argtypes = [P, P, P, P, I, I, I, I, P]
+    lib.tsq_decode_stream.restype = I
+    # payload, tok_a, tok_b, out, n_blocks, n_chunks, pay_rows,
+    # out_rows, stream
+    lib.tsq_decode_tokens.argtypes = [P, P, P, P, I, I, I, I, P]
+    lib.tsq_decode_tokens.restype = I
+    # input, cand, table, meta, out, osz, n_blocks, in_rows, cand_rows,
+    # out_rows, ext, table_mode, stream
+    lib.tsq_encode_emit.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
+    lib.tsq_encode_emit.restype = I
+    lib.tsq_cuda_error_string.argtypes = [I]
+    lib.tsq_cuda_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def check_launch(err: int, name: str) -> None:

@@ -239,8 +239,8 @@ __global__ void __launch_bounds__(1) encode_decide_kernel(
   s.u_side = kTailBytes + static_cast<uint32_t>(in_bytes);
   s.init(size, base);
   if (size > 0)
-    parse_cand<kExt, true>(w, cand + b * cand_len, nv + b * cand_len, s, base,
-                           size);
+    parse_cand<kExt>(w, cand + b * cand_len, NvScan{nv + b * cand_len}, s,
+                     base, size);
   s.finish();
 }
 

@@ -96,8 +96,8 @@ __global__ void __launch_bounds__(1) encode_flat_decide_kernel(
   s.n_sym = 0;
   s.anchor = base;
   if (size > 0)
-    parse_cand<kExt, true>(w, cand + b * cand_len, nv + b * cand_len, s, base,
-                           size);
+    parse_cand<kExt>(w, cand + b * cand_len, NvScan{nv + b * cand_len}, s,
+                     base, size);
   st[0] = s.n_sym;
   st[1] = s.n_sym > static_cast<uint32_t>(desc_rows - 8) * kLanes;
 }

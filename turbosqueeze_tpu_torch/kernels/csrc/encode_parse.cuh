@@ -12,14 +12,18 @@
 // cursor)` for one match symbol, the cursor being the input position after
 // it.
 //
-// With a skip table (`nv`, next_valid: nv[i] is the first j >= i whose
-// candidate chain is non-empty) the scan jumps from candidate stop to
-// candidate stop and replays the 32-byte literal flushes of the skipped
+// The scan jumps from candidate stop to candidate stop (the positions j
+// with cand[j] >= 0) and replays the 32-byte literal flushes of the skipped
 // bytes in closed form, so the decisions cost O(symbols), not O(bytes). At
 // a position without a candidate the parse does nothing but those flushes,
-// so the jump leaves every decision as it was. An entry below its own
-// position is read as the position itself, so a garbage table cannot move
-// the scan backwards.
+// so the jump leaves every decision as it was. A scan policy gives the
+// parse its three reads that a warp can widen: `next(i, end)`, the first
+// stop after i (at most end), `usable(cand, i, anchor)` and
+// `prefix<kExt>(w, i, pos)`. NvScan, the one-thread policy, reads the next
+// stop from a skip table (`nv`,
+// next_valid: nv[i] is the first j >= i whose candidate chain is
+// non-empty); an entry below its own position is read as the position
+// itself, so a garbage table cannot move the scan backwards.
 //
 // A candidate chain must strictly decrease (phase A never makes one that
 // does not): an entry at or past the position it is read at ends the chain,
@@ -98,37 +102,53 @@ __device__ __forceinline__ uint32_t usable(const int32_t* __restrict__ cand,
   return static_cast<uint32_t>(p);
 }
 
+// The one-thread scan policy: the skip table, the serial chain walk and
+// prefix.
+struct NvScan {
+  const int32_t* __restrict__ nv;
+
+  __device__ __forceinline__ uint32_t next(uint32_t i, uint32_t end) const {
+    const int32_t n = __ldg(nv + i + 1);
+    return min(max(static_cast<uint32_t>(max(n, 0)), i + 1), end);
+  }
+
+  __device__ __forceinline__ uint32_t usable(const int32_t* __restrict__ cand,
+                                             uint32_t i,
+                                             uint32_t anchor) const {
+    return tsq_parse::usable(cand, i, anchor);
+  }
+
+  template <bool kExt>
+  __device__ __forceinline__ uint32_t prefix(const uint32_t* __restrict__ w,
+                                             uint32_t i, uint32_t pos) const {
+    return tsq_parse::prefix<kExt>(w, i, pos);
+  }
+};
+
 // The parse of one block: input bytes [base, base + size) of `w`, the
-// candidates of the same positions, and with kJump the skip table `nv`.
-template <bool kExt, bool kJump, class Sink>
+// candidates of the same positions, and the scan policy.
+template <bool kExt, class Scan, class Sink>
 __device__ void parse_cand(const uint32_t* __restrict__ w,
-                           const int32_t* __restrict__ cand,
-                           const int32_t* __restrict__ nv, Sink& sink,
-                           uint32_t base, uint32_t size) {
+                           const int32_t* __restrict__ cand, const Scan& scan,
+                           Sink& sink, uint32_t base, uint32_t size) {
   const uint32_t end = base + size;
   uint32_t i = base;
   for (;;) {
     uint32_t run_start = i, pos;
     for (;;) {
-      if (kJump) {
-        // the next candidate stop; every 32 bytes on the way flush
-        const int32_t n = __ldg(nv + i + 1);
-        const uint32_t nxt =
-            min(max(static_cast<uint32_t>(max(n, 0)), i + 1), end);
-        while (nxt - run_start > 32) {
-          sink.literals(w, run_start, run_start + 32);
-          run_start += 32;
-        }
-        i = nxt;
-      } else {
-        ++i;
+      // the next candidate stop; every 32 bytes on the way flush
+      const uint32_t nxt = scan.next(i, end);
+      while (nxt - run_start > 32) {
+        sink.literals(w, run_start, run_start + 32);
+        run_start += 32;
       }
-      pos = i < end ? usable(cand, i, sink.anchor) : kNone;
+      i = nxt;
+      pos = i < end ? scan.usable(cand, i, sink.anchor) : kNone;
       if (i - run_start > 31) {
         sink.literals(w, run_start, i);
         run_start = i;
         // the flush may move the anchor past pos: re-validate
-        if (pos != kNone) pos = usable(cand, i, sink.anchor);
+        if (pos != kNone) pos = scan.usable(cand, i, sink.anchor);
       }
       if (!(i < end) || pos != kNone) break;
     }
@@ -137,11 +157,11 @@ __device__ void parse_cand(const uint32_t* __restrict__ w,
     // the trailing flush can move the anchor past the candidate's 16-bit
     // reach: walk the chain again under the new anchor
     if (sink.anchor - pos > 65534) {
-      pos = usable(cand, i, sink.anchor);
+      pos = scan.usable(cand, i, sink.anchor);
       if (pos == kNone) continue;
     }
     for (;;) {
-      uint32_t k = prefix<kExt>(w, i, pos);
+      uint32_t k = scan.template prefix<kExt>(w, i, pos);
       const uint32_t window = sink.anchor - pos;
       if (k > window) k = window - 1;
       if (k < 4) break;
@@ -149,7 +169,7 @@ __device__ void parse_cand(const uint32_t* __restrict__ w,
       i += code_width(code);
       sink.match(window, code, i);
       if (!(i < end - 5)) break;
-      pos = usable(cand, i, sink.anchor);
+      pos = scan.usable(cand, i, sink.anchor);
       if (pos == kNone) break;
     }
     if (!(i < end)) break;
