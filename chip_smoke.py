@@ -58,8 +58,10 @@ Phases:
   9. the two other level-1 emitters: the decide kernel, the assemble pass
      (the bulk kernel's assemble entry) and the flat decide kernel against
      their plain versions, word for word over their whole planes (phase
-     5's mixed blocks and a dense 1-literal/1-match block, ext on and off,
-     a dictionary base, garbage planes, one full 4 MiB block each, timed),
+     5's mixed blocks, a dense 1-literal/1-match block and three blocks
+     that end with their open slots below the literal high-water mark,
+     ext on and off, a dictionary base, garbage planes, one full 4 MiB
+     block each, timed),
      their payloads against the native core; then phase 3's 256 MiB
      compressed through ``compress(emit_impl="bulk")`` and ``"flat"`` at
      level 1, byte-identical to ``native.compress``, timed with the layers
@@ -79,12 +81,14 @@ line. Run from the repository root:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --emit-only [--ab ROOT ...]`` builds the kernels
-and runs only phase 5's class blocks and the emit kernel on phase 6's two
-windows at levels 0 and 1; with ``--ab``, the kernels of each other
-checkout ``ROOT`` (``ROOT/turbosqueeze_tpu_torch/kernels/csrc``, for
-instance the parent commit unpacked by ``git archive``) run there too,
-and on the pydoc block the decide and flat decide kernels: each held to
-this tree's outputs and timed in turns with it.
+and runs only phase 5's class blocks, the emit kernel on phase 6's two
+windows at levels 0 and 1, the decide and flat decide kernels on the
+level-1 windows and on each class's full block (their payloads against
+the native core, with symbols, ms a symbol and bound); with ``--ab``, the
+kernels of each other checkout ``ROOT``
+(``ROOT/turbosqueeze_tpu_torch/kernels/csrc``, for instance the parent
+commit unpacked by ``git archive``) run there too: each held to this
+tree's outputs and timed in turns with it.
 """
 
 from __future__ import annotations
@@ -901,12 +905,16 @@ def _emit_classes(errs, timing, others=None):
 
 def _emit_windows(others=None):
     """The emit kernel on both 32-block windows of phase 6's input at
-    levels 0 (``table``) and 1 (``cand``, phase A on the card), ms per
-    window (one launch each, as phase 6); with ``others`` (kernel
-    libraries by name) also on each, in turns with this one ("new")."""
+    levels 0 (``table``) and 1 (``cand``, phase A on the card), and the
+    decide and flat decide kernels on the level-1 planes, ms per window
+    (one launch each, as phases 6 and 9); with ``others`` (kernel
+    libraries by name) also on each, in turns with this one ("new"), the
+    decide kernels' planes held to this one's word for word."""
     from turbosqueeze_tpu_torch.format import split_blocks
     from turbosqueeze_tpu_torch.kernels import _build
+    from turbosqueeze_tpu_torch.kernels import encode_bulk as EB
     from turbosqueeze_tpu_torch.kernels import encode_emit as EE
+    from turbosqueeze_tpu_torch.kernels import encode_flat as EF
     from turbosqueeze_tpu_torch.parallel import pipeline
 
     blocks = split_blocks(_e2e_input(64))
@@ -924,38 +932,85 @@ def _emit_windows(others=None):
                                 *planes, matcher=matcher)))
                         for k, lib in libs.items()}, 1)
             for side, v in t.items():
-                res.setdefault((level, side), []).append(v)
-        del batch
-    for (level, side), v in sorted(res.items()):
-        say("phase5", level=level, kernel=side, emit_ms_per_window="/".join(
-            "+".join(f"{x:.2f}" for x in w) for w in v))
+                res.setdefault(("emit", level, side), []).append(v)
+        # the decide kernels on the level-1 planes, held to this library's
+        iw, cw, meta = planes
+        nv = EB.next_valid(cw)
+        for kname, fn in (
+                ("encode_decide", lambda: EB.decide_batch(iw, cw, nv, meta)),
+                ("encode_flat_decide",
+                 lambda: EF.flat_decide_batch(iw, cw, nv, meta))):
+            runs = {k: (lambda lib=lib, fn=fn: _with(lib, fn))
+                    for k, lib in libs.items()}
+            want = runs["new"]()
+            for k in others or ():
+                check(all(torch.equal(g, r) for g, r in zip(runs[k](), want)),
+                      f"A/B {k}: {kname} window != this library's")
+            del want
+            for side, v in _ab_ms(runs, 1).items():
+                res.setdefault((kname, 1, side), []).append(v)
+        del batch, cands, planes, iw, cw, nv
+    for (kname, level, side), v in sorted(res.items()):
+        say("phase5" if kname == "emit" else "phase9", level=level,
+            kernel=side if kname == "emit" else f"{kname} {side}",
+            **{f"{kname}_ms_per_window": "/".join(
+                "+".join(f"{x:.2f}" for x in w) for w in v)})
 
 
-def _decide_ab(others):
-    """The decide and flat decide kernels, which share the candidate
-    parse, on the pydoc block (phase 9's timed row) with this library and
-    each of ``others``, in turns: held to this one's planes, ms each."""
+def _decide_classes(others=None):
+    """The decide and flat decide kernels on each class's full block
+    (``class_blocks``), one block a launch (B = 1, ext on, the main path's
+    plane shapes): the payloads they make (assemble, layout) against the
+    native core; time (the mean of two medians of 3), symbols, ms a
+    symbol and the bound from what the run wrote (``_encode_moved``).
+    With ``others`` (other checkouts' kernel libraries by name), each
+    other library's planes are held to this one's word for word and timed
+    in turns with it ("new")."""
+    from gang_streams import CLASSES
     from turbosqueeze_tpu_torch.kernels import _build
     from turbosqueeze_tpu_torch.kernels import encode_bulk as EB
+    from turbosqueeze_tpu_torch.kernels import encode_emit as EE
     from turbosqueeze_tpu_torch.kernels import encode_flat as EF
+    from turbosqueeze_tpu_torch.runtime import native
 
-    iw, cw, meta = (p.cuda() for p in _emit_planes([_e2e_input(2)[4 * MiB:]]))
-    nv = EB.next_valid(cw)
-    libs = {**others, "new": _build.library()}
-    for name, fn in (("encode_decide",
-                      lambda: EB.decide_batch(iw, cw, nv, meta)),
-                     ("encode_flat_decide",
-                      lambda: EF.flat_decide_batch(iw, cw, nv, meta))):
-        runs = {k: (lambda lib=lib, fn=fn: _with(lib, fn))
-                for k, lib in libs.items()}
-        want = [t.cpu() for t in runs["new"]()]
-        for k in others:
-            check(all(torch.equal(g.cpu(), r)
-                      for g, r in zip(runs[k](), want)),
-                  f"A/B {k}: {name} != this library's")
-        t = _ab_ms(runs)
-        say("phase9", kernel=name, full_block=True, **{
-            f"{k}_ms": "/".join(f"{x:.4f}" for x in v) for k, v in t.items()})
+    blocks = _e2e_input(len(CLASSES))
+    libs = {**(others or {}), "new": _build.library()}
+    for b, name in enumerate(CLASSES):
+        blk = blocks[b * 4 * MiB:(b + 1) * 4 * MiB]
+        iw, cw, meta = (p.cuda() for p in _emit_planes([blk]))
+        nv = EB.next_valid(cw)
+        want = native.encode_block_candidates(
+            blk, native.build_candidates(blk), True)
+        side, rec, osz = EB.decide_batch(iw, cw, nv, meta)
+        desc, stats = EF.flat_decide_batch(iw, cw, nv, meta)
+        words, fosz = EF.layout_live(desc, stats, iw, meta)
+        check(EE.payload_from_words(EB.assemble_batch(iw, side, rec, osz)[0],
+                                    int(osz[0, 0])) == want,
+              f"decide {name}: payload != native")
+        check(EE.payload_from_words(words[0], int(fosz[0, 0])) == want,
+              f"flat decide {name}: payload != native")
+        moved = _encode_moved(meta, osz, desc, stats)
+        n_sym = int(stats[0, 0])
+        for kname, fn, outs in (
+                ("encode_decide", lambda: EB.decide_batch(iw, cw, nv, meta),
+                 (side, rec, osz)),
+                ("encode_flat_decide",
+                 lambda: EF.flat_decide_batch(iw, cw, nv, meta),
+                 (desc, stats))):
+            runs = {k: (lambda lib=lib, fn=fn: _with(lib, fn))
+                    for k, lib in libs.items()}
+            for k in others or ():
+                check(all(torch.equal(g, r) for g, r in zip(runs[k](), outs)),
+                      f"A/B {k}: {kname} {name} != this library's")
+            t = _ab_ms(runs)
+            ms = statistics.mean(t["new"])
+            say("phase9", kernel=kname, block=name, kernel_ms=f"{ms:.4f}",
+                symbols=n_sym, ms_per_symbol=f"{ms / max(1, n_sym):.7f}",
+                bytes=moved[kname],
+                bound_ms=f"{moved[kname] / HBM_BYTES_PER_MS:.6f}",
+                **{f"{k}_ms": "/".join(f"{x:.4f}" for x in v)
+                   for k, v in t.items()})
+        del side, rec, desc, words
 
 
 def phase6(counts):
@@ -1741,6 +1796,7 @@ def _emitter_layers(data, emit_impl):
 def phase9(errs, counts, timing, data):
     """The two-pass and flat emitters: their kernels against their plain
     versions, then ``compress(emit_impl="bulk"|"flat")`` end to end."""
+    from gang_streams import open_slot_blocks
     from turbosqueeze_tpu_torch.format import iter_container
     from turbosqueeze_tpu_torch.runtime import native
     from turbosqueeze_tpu_torch.utils.corpus import (synthetic_binary,
@@ -1752,7 +1808,8 @@ def phase9(errs, counts, timing, data):
                    + b"QWERTYUI" for _ in range(20_000))
     blocks = [synthetic_text(700_000, seed=41),
               synthetic_binary(500_000, seed=43), bytes(300_000),
-              np.random.default_rng(7).bytes(4 * MiB), alt, b"abcab", b""]
+              np.random.default_rng(7).bytes(4 * MiB), alt, b"abcab", b"",
+              *open_slot_blocks()]
     d = synthetic_text(33_000, seed=113)
     dict_blocks = [synthetic_text(150_000, seed=114), bytes(20_000)]
     for dictionary, blks in ((b"", blocks), (d, dict_blocks)):
@@ -1849,8 +1906,7 @@ def main() -> int:
                   if "--ab" in args else None)
         _emit_classes(errs, timing, others)
         _emit_windows(others)
-        if others:
-            _decide_ab(others)
+        _decide_classes(others)
         say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,

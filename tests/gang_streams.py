@@ -196,3 +196,16 @@ def class_blocks(n_blocks=len(CLASSES)):
             reps = (off + blk) // len(src) + 1
             out.append((src * reps)[off:off + blk])
     return out
+
+
+def open_slot_blocks():
+    """Short blocks (86 bytes) whose parse ends on a match right after a
+    short literal run, at n_sym % 8 == 0: the ctrl and size slots still
+    open at the end lie below the literal high-water mark, so they hold
+    over-copied input bytes (the decide sinks' dead values)."""
+    out = []
+    for k in (29, 32, 35):
+        r = np.random.default_rng(100 * k + 38 - k)
+        p = r.bytes(24)
+        out.append(r.bytes(k) + p + r.bytes(38 - k) + p)
+    return out

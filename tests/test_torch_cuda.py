@@ -31,7 +31,8 @@ from turbosqueeze_tpu_torch.utils.corpus import (synthetic_binary,
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from emit_cases import table_cases  # noqa: E402
 from gang_streams import (CASES, CLASSES, DIFFERENCES,  # noqa: E402
-                          class_blocks, garbage_planes, hand_planes)
+                          class_blocks, garbage_planes, hand_planes,
+                          open_slot_blocks)
 
 pytestmark = pytest.mark.cuda
 
@@ -631,6 +632,46 @@ def test_encode_kernels_garbage_planes_match_plain(native):
         ref = PEF.flat_decide_batch(*host, desc_rows=rows)
         for g, r in zip(got, ref):
             assert torch.equal(g.cpu(), r)
+
+
+def _decide_kernels_match(native, blocks, ext):
+    """Both decide kernels on ``blocks`` against their plain versions,
+    word for word; the assembled and laid-out payloads against the native
+    core."""
+    host = planes_to_torch(*_encode_planes(native, blocks), device="cpu")
+    host.insert(2, PEB.next_valid(host[1]))
+    dev = [t.cuda() for t in host]
+    got = PEB.decide_batch(*dev, ext=ext)
+    desc, stats = PEF.flat_decide_batch(*dev, ext=ext)
+    ref = PEB.decide_batch(*host, ext=ext)
+    for name, g, r in zip(("side", "rec", "osz"), got, ref):
+        assert torch.equal(g.cpu(), r), name
+    rdesc, rstats = PEF.flat_decide_batch(*host, ext=ext)
+    assert torch.equal(desc.cpu(), rdesc) and torch.equal(stats.cpu(), rstats)
+    pay = PEB.assemble_batch(dev[0], *got)
+    words, fosz = PEF.layout_live(desc, stats, dev[0], dev[3], ext=ext)
+    osz, fosz = ref[2], fosz.cpu()
+    for k, b in enumerate(blocks):
+        want = _want(native, b, ext)
+        assert PE.payload_from_words(pay[k], int(osz[k, 0])) == want, k
+        assert PE.payload_from_words(words[k], int(fosz[k, 0])) == want, k
+
+
+@pytest.mark.parametrize("cls", range(len(CLASSES)), ids=CLASSES)
+def test_decide_kernels_class_blocks(native, full_class_blocks, cls):
+    """One full 4 MiB block of each class of ``chip_smoke.py``'s input,
+    ext on and off: the decide and flat decide kernels equal their plain
+    versions, and their payloads the native core's."""
+    for ext in (True, False):
+        _decide_kernels_match(native, [full_class_blocks[cls]], ext)
+
+
+@pytest.mark.parametrize("ext", [True, False])
+def test_decide_kernels_open_slot_blocks(native, ext):
+    """Blocks that end with the ctrl and size slots open below the
+    literal high-water mark: the warp sink's dead values, loaded at the
+    end only, are the plain version's."""
+    _decide_kernels_match(native, open_slot_blocks(), ext)
 
 
 @pytest.mark.parametrize("emit_impl", ["bulk", "flat"])

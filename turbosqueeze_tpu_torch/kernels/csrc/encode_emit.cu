@@ -35,9 +35,10 @@
 //     position;
 //   * for `cand` a chain walk (it reads only positions between the anchor
 //     and the cursor) is one load a lane, issued with its first entry,
-//     and pointer doubling over shuffles, not a dependent load a step;
+//     and pointer doubling over shuffles, not a dependent load a step
+//     (encode_parse.cuh's usable_warp, shared with the decide kernels);
 //   * a match's common prefix is one ballot over 4-byte words, not up to 8
-//     dependent 8-byte compares;
+//     dependent 8-byte compares (encode_parse.cuh's prefix_warp);
 //   * a literal run's 16 bytes are copied one byte a lane.
 // Every byte of the payload is stored by lane (address mod 32), so no two
 // lanes write one byte and each byte's stores keep their program order.
@@ -76,7 +77,6 @@ constexpr uint32_t kBlockSize = 1u << 22;
 constexpr uint32_t kHashEntries = 1u << 17;
 constexpr uint32_t kHashMask = kHashEntries - 1;
 constexpr int64_t kReadSlack = 8 * kRowBytes;  // reads past a block's end
-constexpr uint32_t kFull = 0xFFFFFFFFu;
 constexpr int kScanSteps = 4;           // ballot steps whose loads fly at once
 
 __device__ __forceinline__ uint32_t hash4(uint32_t v) {
@@ -175,26 +175,10 @@ struct Sink {
   }
 };
 
-// Common-prefix length of the input at i and pos, as tsq_parse::prefix
-// computes it (the first differing byte, at most 64 with ext, else 16):
-// lane l compares the 4-byte words at +4l, and one ballot finds the first
-// that differs.
-template <bool kExt>
-__device__ __forceinline__ uint32_t prefix_warp(const uint32_t* __restrict__ w,
-                                                uint32_t i, uint32_t pos,
-                                                uint32_t lane) {
-  constexpr uint32_t kWords = kExt ? 16 : 4;
-  const uint32_t x =
-      lane < kWords ? load32(w, i + 4 * lane) ^ load32(w, pos + 4 * lane) : 0;
-  const uint32_t m = __ballot_sync(kFull, x != 0);
-  if (m == 0) return 4 * kWords;
-  const uint32_t f = __ffs(m) - 1;
-  return 4 * f + ((__ffs(__shfl_sync(kFull, x, f)) - 1) >> 3);
-}
-
-// The warp's scan policy for parse_cand: the next candidate stop by ballot
-// over cand[i+1+l] >= 0 (next_valid's predicate), 32 positions a step,
-// kScanSteps steps' loads in flight; no lane reads at or past `end`.
+// The emit kernel's scan policy for parse_cand: the next candidate stop by
+// ballot over cand[i+1+l] >= 0 (next_valid's predicate), 32 positions a
+// step, kScanSteps steps' loads in flight, no lane reading at or past
+// `end`; the chain walk and the prefix are encode_parse.cuh's warp reads.
 struct WarpScan {
   const int32_t* __restrict__ cand;
   uint32_t lane;
@@ -216,46 +200,10 @@ struct WarpScan {
     return end;
   }
 
-  // tsq_parse::usable. The walk goes on only while p + 4 > anchor, so
-  // every entry it reads from `top` on lies in [anchor - 3, top]: when
-  // that span is at most 32 positions, lane l holds cand[top - l], loaded
-  // with the first entry (most chains end at once), and a longer walk's
-  // end is found by pointer doubling (5 shuffle rounds). A wider span
-  // takes a step through memory and looks again from there.
   __device__ __forceinline__ uint32_t usable(const int32_t* __restrict__ cnd,
                                              uint32_t i,
                                              uint32_t anchor) const {
-    const auto more = [anchor](int64_t p, int64_t q) {
-      return p >= 0 && p < q && static_cast<uint32_t>(p) + 4 > anchor;
-    };
-    const auto window = [&](uint32_t top) {
-      const uint32_t span = top - anchor + 4;
-      const int64_t x = static_cast<int64_t>(top) - lane;
-      return span <= 32 && lane < span && x >= 0 ? __ldg(cnd + x) : -1;
-    };
-    uint32_t top = i;
-    int32_t c = window(top);
-    int64_t q = i, p = __ldg(cnd + i);
-    while (more(p, q)) {
-      if (top - anchor + 4 <= 32) {  // c holds the span
-        const int64_t x = static_cast<int64_t>(top) - lane;
-        // lane l's successor lane, itself where the walk ends
-        uint32_t nxt = more(c, x) ? top - static_cast<uint32_t>(c) : lane;
-#pragma unroll
-        for (int r = 0; r < 5; ++r) nxt = __shfl_sync(kFull, nxt, nxt);
-        const uint32_t t = __shfl_sync(kFull, nxt, 0);
-        q = top - t;
-        p = __shfl_sync(kFull, c, t);
-        break;
-      }
-      q = p;
-      top = static_cast<uint32_t>(q);
-      c = window(top);
-      p = __ldg(cnd + q);
-    }
-    if (p < 0 || p >= q || anchor - static_cast<uint32_t>(p) > 65534)
-      return kNone;
-    return static_cast<uint32_t>(p);
+    return usable_warp(cnd, i, anchor, lane, [&] { return __ldg(cnd + i); });
   }
 
   template <bool kExt>

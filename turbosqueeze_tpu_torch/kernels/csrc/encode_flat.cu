@@ -19,16 +19,22 @@
 // descriptors past the plane dropped, so the row is the same whatever the
 // plane holds.
 //
-// What bounds it. One serial chain of dependent loads per block (candidate
-// walks, 8-byte compares, the skip table); 4 bytes written a symbol.
+// What bounds it. One serial chain of dependent loads per block
+// (encode_parse.cuh: the skip table, the candidate walks, the compared
+// input words); 4 bytes written a symbol, far below the card's rate.
 //
-// The design. One thread runs one block; blocks run in parallel on the SMs.
-// The TPU kernel interleaves nblk chains in one loop body, with every rare
-// step (ring catch-ups, chain walks, long extends, descriptor-slot ships)
-// turned into a request that one branch serves, to hide its scalar unit's
-// latency; on the card each chain is its own thread, so nblk changes no
-// byte and only the wrapper checks it. A block whose meta does not fit the
-// planes gets stats [-1, 1, 0...] and no descriptor.
+// The design. One warp runs one block; blocks run in parallel on the SMs.
+// The parse is encode_parse.cuh's on the warp (NvWarpScan: the next stop
+// from the skip table, the chain walk and the prefix across the lanes);
+// the sink's count and anchor are held alike by every lane, lane n % 32
+// holds descriptor n, and each row of 32 descriptors is stored at once,
+// one coalesced store of the warp. The TPU kernel interleaves nblk chains
+// in one loop body, with every rare step (ring catch-ups, chain walks,
+// long extends, descriptor-slot ships) turned into a request that one
+// branch serves, to hide its scalar unit's latency; on the card each chain
+// is its own warp, so nblk changes no byte and only the wrapper checks it.
+// A block whose meta does not fit the planes gets stats [-1, 1, 0...] and
+// no descriptor.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -47,11 +53,21 @@ constexpr int64_t kReadSlack = 8 * kRowBytes;  // reads past a block's end
 
 struct FlatSink {
   uint32_t* desc;
-  uint32_t cap, n_sym, anchor;
+  uint32_t lane, cap, n_sym, anchor, held;
 
+  // lane n % 32 holds descriptor n; a full row of 32 is stored at once
   __device__ void put(uint32_t d, uint32_t cursor) {
-    if (n_sym < cap) desc[n_sym] = d;
+    if ((n_sym & 31) == lane) held = d;
+    if ((n_sym & 31) == 31) {
+      const uint32_t at = n_sym - 31 + lane;
+      if (at < cap) desc[at] = held;
+    }
     if ((++n_sym & 1) == 0) anchor = cursor;
+  }
+
+  __device__ void flush() {
+    const uint32_t at = (n_sym & ~31u) + lane;
+    if (lane < (n_sym & 31) && at < cap) desc[at] = held;
   }
 
   __device__ void literals(const uint32_t* __restrict__, uint32_t from,
@@ -69,12 +85,13 @@ struct FlatSink {
 };
 
 template <bool kExt>
-__global__ void __launch_bounds__(1) encode_flat_decide_kernel(
+__global__ void __launch_bounds__(32) encode_flat_decide_kernel(
     const uint32_t* __restrict__ input, const int32_t* __restrict__ cand,
     const int32_t* __restrict__ nv, const int32_t* __restrict__ meta,
     uint32_t* desc, int32_t* stats, int in_rows, int cand_rows,
     int desc_rows) {
   const int b = blockIdx.x;
+  const uint32_t lane = threadIdx.x;
   const int64_t in_bytes = static_cast<int64_t>(in_rows) * kRowBytes;
   const int64_t cand_len = static_cast<int64_t>(cand_rows) * kLanes;
   const int32_t size = meta[b * kMetaWords], base = meta[b * kMetaWords + 1];
@@ -85,21 +102,29 @@ __global__ void __launch_bounds__(1) encode_flat_decide_kernel(
                     static_cast<int64_t>(base) + size + kReadSlack <= in_bytes &&
                     static_cast<int64_t>(base) + size < cand_len;
   if (!fits) {
-    st[0] = -1;
-    st[1] = 1;
+    if (lane == 0) {
+      st[0] = -1;
+      st[1] = 1;
+    }
     return;
   }
   const uint32_t* w = input + static_cast<size_t>(b) * in_rows * kLanes;
   FlatSink s;
   s.desc = desc + static_cast<size_t>(b) * desc_rows * kLanes;
+  s.lane = lane;
   s.cap = desc_rows * kLanes;
-  s.n_sym = 0;
+  s.n_sym = s.held = 0;
   s.anchor = base;
   if (size > 0)
-    parse_cand<kExt>(w, cand + b * cand_len, NvScan{nv + b * cand_len}, s,
-                     base, size);
-  st[0] = s.n_sym;
-  st[1] = s.n_sym > static_cast<uint32_t>(desc_rows - 8) * kLanes;
+    parse_cand<kExt>(w, cand + b * cand_len,
+                     NvWarpScan(nv + b * cand_len, cand + b * cand_len, w,
+                                lane, cand_len, base, base + size),
+                     s, base, size);
+  s.flush();
+  if (lane == 0) {
+    st[0] = s.n_sym;
+    st[1] = s.n_sym > static_cast<uint32_t>(desc_rows - 8) * kLanes;
+  }
 }
 
 }  // namespace
@@ -119,7 +144,7 @@ int tsq_encode_flat_decide(const void* input, const void* cand,
   auto s = static_cast<cudaStream_t>(stream);
   auto kernel = ext ? encode_flat_decide_kernel<true>
                     : encode_flat_decide_kernel<false>;
-  kernel<<<n_blocks, 1, 0, s>>>(
+  kernel<<<n_blocks, 32, 0, s>>>(
       static_cast<const uint32_t*>(input), static_cast<const int32_t*>(cand),
       static_cast<const int32_t*>(nv), static_cast<const int32_t*>(meta),
       static_cast<uint32_t*>(desc), static_cast<int32_t*>(stats), in_rows,

@@ -18,7 +18,7 @@ n_sym passes ``(desc_rows - 8) * 128``. The parse runs to its end all the
 same, with descriptors past the plane dropped. A block whose meta does not
 fit the planes gets stats ``[-1, 1, 0...]``. The JAX kernel interleaves
 ``nblk`` chains to hide its scalar unit's latency; here a block is one
-thread, so ``nblk`` changes no byte and only its ``B % nblk`` check stays,
+warp, so ``nblk`` changes no byte and only its ``B % nblk`` check stays,
 for parity with the JAX wrapper; the pipeline leaves it at 1.
 
 ``layout_batch`` is the JAX package's layout pass
