@@ -49,9 +49,12 @@ Phases:
      dictionary=d)`` and every route, against ``native.decompress_dict``;
   8. the bulk kernel through its three wrappers against its plain version
      (mixed blocks: levels 0-2, ext on and off, a two-window block; a
-     dictionary in three windows; garbage planes; one launch per ABI on
-     the same full level-1 blocks, whole groups at the main path's width,
-     timed); phase 3's containers through ``impl="bulk"``,
+     dictionary in three windows; garbage planes; hand-built entries whose
+     records overlap; one launch per ABI on the same full level-1 blocks,
+     whole groups at the main path's width, timed); the token, bulk and
+     stream routes against their plain versions on the corrupt containers
+     where they differ from the JAX routes; phase 3's containers through
+     ``impl="bulk"``,
      ``"bulk2"`` and ``"bulkn"``, against the input and the native decoder,
      timed with the layers apart; and phase 7's dictionary container
      through the three routes;
@@ -60,8 +63,9 @@ Phases:
      their plain versions, word for word over their whole planes (phase
      5's mixed blocks, a dense 1-literal/1-match block and three blocks
      that end with their open slots below the literal high-water mark,
-     ext on and off, a dictionary base, garbage planes, one full 4 MiB
-     block each, timed),
+     ext on and off, a dictionary base, garbage planes, the assemble entry
+     on hand-built entries whose records overlap, one full 4 MiB block
+     each, timed),
      their payloads against the native core; then phase 3's 256 MiB
      compressed through ``compress(emit_impl="bulk")`` and ``"flat"`` at
      level 1, byte-identical to ``native.compress``, timed with the layers
@@ -84,8 +88,12 @@ line. Run from the repository root:
 and runs only phase 5's class blocks, the emit kernel on phase 6's two
 windows at levels 0 and 1, the decide and flat decide kernels on the
 level-1 windows and on each class's full block (their payloads against
-the native core, with symbols, ms a symbol and bound); with ``--ab``, the
-kernels of each other checkout ``ROOT``
+the native core, with symbols, ms a symbol and bound).
+``python3 chip_smoke.py --bulk-only [--ab ROOT ...]`` runs only the bulk
+kernel on each class's full level-1 block through every stream ABI, the
+assemble entry and the gang kernel on the same blocks (against the input
+or the native core, with entries or gangs, us a unit and bound). With
+``--ab``, the kernels of each other checkout ``ROOT``
 (``ROOT/turbosqueeze_tpu_torch/kernels/csrc``, for instance the parent
 commit unpacked by ``git archive``) run there too: each held to this
 tree's outputs and timed in turns with it.
@@ -1323,6 +1331,95 @@ def phase7(errs, counts, timing, data, streams):
             launches=",".join(f"{k}:{launched[k]}" for k in kernels))
 
 
+def _bulk_classes(others=None):
+    """The bulk kernel on each class's full block (``class_blocks``, level
+    1, ext on) through every stream ABI, a group holding a copy of the
+    block a member (``bulk`` 1, ``bulk2`` 2, ``bulkn`` the width the route
+    takes for it), the assemble entry on the block's decide planes, and
+    the gang kernel on its gang planes (B = 1): each held to the input (the
+    assemble to the native core's payload); its time (the mean of two
+    medians of 3), the entries one block applies, us an entry and the
+    bound. With ``others`` (other checkouts' kernel libraries by name),
+    each is held to this library's words and timed in turns with it
+    ("new")."""
+    from gang_streams import CLASSES
+    from turbosqueeze_tpu_torch.kernels import _build
+    from turbosqueeze_tpu_torch.kernels import decode_bulk as DB
+    from turbosqueeze_tpu_torch.kernels import decode_gang as DG
+    from turbosqueeze_tpu_torch.kernels import encode_bulk as EB
+    from turbosqueeze_tpu_torch.kernels import encode_emit as EE
+    from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
+    from turbosqueeze_tpu_torch.parallel import pipeline
+    from turbosqueeze_tpu_torch.runtime import native
+
+    blocks = _e2e_input(len(CLASSES))
+    libs = {**(others or {}), "new": _build.library()}
+    srecs = pipeline.GANG_SRECS[1]
+
+    def timed(kname, name, fn, want, **kv):
+        runs = {k: (lambda lib=lib: _with(lib, fn)) for k, lib in libs.items()}
+        for k in others or ():
+            check(torch.equal(runs[k](), want), f"A/B {k}: {kname} {name} "
+                  "!= this library's")
+        t = _ab_ms(runs)
+        ms = statistics.mean(t["new"])
+        n = kv.get("entries", kv.get("gangs"))
+        say("bulk", kernel=kname, block=name, kernel_ms=f"{ms:.4f}", **kv,
+            us_per_unit=f"{1e3 * ms / max(1, n):.4f}",
+            **{f"{k}_ms": "/".join(f"{x:.4f}" for x in v)
+               for k, v in t.items()})
+
+    for b, name in enumerate(CLASSES):
+        blk = blocks[b * 4 * MiB:(b + 1) * 4 * MiB]
+        payload = (native.compress(blk, True, level=1)[19:], True)
+        prep = DB.resolve_blocks([payload])[0]
+        width = pipeline.bulk_abi("bulkn", [prep])
+        for abi, nblk in (("bulk", 1), ("bulk2", 2), width):
+            planes = DB.pack_batch([prep] * nblk, abi, nblk)[:3]
+            dev = planes_to_torch(*planes, device="cuda")
+            got = DB.decode_bulk(abi, nblk, *dev)
+            for k in range(nblk):
+                check(_bytes_of(got, k, 0, len(blk)) == blk,
+                      f"{abi} {name} member {k} != input")
+            m = planes[2][0].view(np.uint32).tolist()
+            words = planes[1][0].reshape(-1).view(np.uint32).tolist()
+            entries = len(DB._member_entries(words, m, abi, nblk, 0,
+                                             DB.MAX_WIN))
+            _, _, end_base = DB._ABIS[abi]
+            moved = (nblk * len(prep[0]) + 4 * max(m[end_base:end_base + 2])
+                     + _nbytes(dev[2], got))
+            timed(f"decode_{abi}", name, lambda: DB.decode_bulk(
+                abi, nblk, *dev), got, nblk=nblk, entries=entries,
+                  bound_ms=f"{moved / HBM_BYTES_PER_MS:.6f}")
+            del dev, got
+        iw, cw, meta = (p.cuda() for p in _emit_planes([blk]))
+        side, rec, osz = EB.decide_batch(iw, cw, EB.next_valid(cw), meta)
+        got = EB.assemble_batch(iw, side, rec, osz)
+        check(EE.payload_from_words(got[0], int(osz[0, 0])) ==
+              native.encode_block_candidates(blk, native.build_candidates(blk),
+                                             True),
+              f"assemble {name}: payload != native")
+        m = osz[0].cpu().view(torch.int32).tolist()
+        words = (rec[0].cpu().reshape(-1).to(torch.int64)
+                 & 0xFFFFFFFF).tolist()
+        entries = len(DB._member_entries(words, m, "bulk", 1, 0,
+                                         EB.OUT_WIN))
+        moved = 32 + 4 * m[7] + 2 * m[0]
+        timed("encode_assemble", name, lambda: EB.assemble_batch(
+            iw, side, rec, osz), got, entries=entries,
+              bound_ms=f"{moved / HBM_BYTES_PER_MS:.6f}")
+        del iw, cw, side, rec, got
+        gplanes = DG.prep_gang([payload], 1, srecs)
+        dev = planes_to_torch(*gplanes[:3], device="cuda")
+        got = DG.decode_gang_batch(*dev, nblk=1, slot_recs=srecs)
+        check(_bytes_of(got, 0, 0, len(blk)) == blk, f"gang {name} != input")
+        gm = gplanes[2][0].view(np.uint32)
+        timed("decode_gang", name, lambda: DG.decode_gang_batch(
+            *dev, nblk=1, slot_recs=srecs), got,
+              gangs=int(max(gm[16:16 + 2 * int(gm[8])], default=0)))
+        del dev, got
+
+
 def _bulk_compare(errs, abi, nblk, planes, datas, what, base=0, **kw):
     """The bulk kernel on the card's copy of numpy ``planes`` against its
     plain version on the host's: each block's bytes and every word."""
@@ -1428,6 +1525,8 @@ def _bulk_full_group(errs, timing, data, stream):
 def phase8(errs, counts, timing, data, streams):
     """The bulk record-stream decode: the kernel through its three wrappers
     against its plain version, and the three bulk routes end to end."""
+    from gang_streams import (BULK_CASES, CORRUPT, bulk_hand_planes,
+                              corrupt_container)
     from turbosqueeze_tpu_torch.format import iter_container
     from turbosqueeze_tpu_torch.kernels import decode_bulk as DB
     from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
@@ -1471,6 +1570,34 @@ def phase8(errs, counts, timing, data, streams):
                              *planes_to_torch(*planes, device="cpu"), **kw)
         check(torch.equal(got.cpu(), ref), f"garbage {abi}: kernel != plain")
     say("phase8", garbage_planes="no fault", exact=True)
+
+    # records that overlap (gang_streams.BULK_CASES): an entry's units in
+    # the plain version's order, through each ABI
+    for case in BULK_CASES:
+        abi, nblk, *planes, _ = bulk_hand_planes(case)
+        got, ref = (DB.decode_bulk(abi, nblk, *planes_to_torch(
+            *planes, device=d), max_win=1) for d in ("cuda", "cpu"))
+        errs[f"decode_{abi}"] = max(errs[f"decode_{abi}"],
+                                    _byte_err(got, ref))
+        check(torch.equal(got.cpu(), ref), f"overlap {case}: kernel != plain")
+    say("phase8", overlap_cases=len(BULK_CASES), exact=True)
+
+    # the corrupt containers on which three routes differ from the JAX
+    # routes by design: each kernel gives its plain version's bytes
+    for case in CORRUPT:
+        _, c = corrupt_container(case, native)
+        for impl, kname in (("pallas", "decode_tokens"),
+                            ("bulk", "decode_bulk"),
+                            ("stream", "decode_stream")):
+            got, ref = (np.frombuffer(pipeline.decompress(
+                c, device=d, impl=impl), np.uint8).astype(np.int16)
+                for d in ("cuda", "cpu"))
+            check(len(got) == len(ref), f"corrupt {case} {impl}: length")
+            errs[kname] = max(errs[kname], int(np.abs(got - ref).max()))
+            check(np.array_equal(got, ref),
+                  f"corrupt {case} {impl}: kernel != plain")
+    say("phase8", corrupt_containers=len(CORRUPT),
+        routes="pallas,bulk,stream", exact=True)
 
     _bulk_full_group(errs, timing, data, streams[1])
 
@@ -1680,6 +1807,36 @@ def _garbage_encode(errs):
           f"osz {ref[2][2].tolist()}")
 
 
+def _assemble_overlaps(errs):
+    """The single-stream overlap cases (``gang_streams.BULK_CASES``)
+    through the assemble entry, their literal rows as the input plane's
+    first rows beside a random side plane: the kernel against its plain
+    version, word for word."""
+    from gang_streams import BULK_CASES, bulk_hand_planes
+    from turbosqueeze_tpu_torch.kernels import encode_bulk as EB
+    from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
+    from turbosqueeze_tpu_torch.kernels.encode_emit import IN_ROWS
+
+    rng = np.random.default_rng(72)
+    cases = [c for c, (abi, _, _) in BULK_CASES.items() if abi == "bulk"]
+    for case in cases:
+        _, _, lit, rec, meta, _ = bulk_hand_planes(case)
+        planes = [np.zeros((1, rows, 128), np.int32) for rows in
+                  (IN_ROWS, EB.SIDE_ROWS, EB.REC_ROWS)]
+        planes[0][:, :lit.shape[1]] = lit
+        planes[1][:] = rng.integers(-2**31, 2**31, planes[1].shape,
+                                    dtype=np.int32)
+        planes[2][:, :rec.shape[1]] = rec
+        got, ref = (EB.assemble_batch(*planes_to_torch(*planes, meta,
+                                                       device=d))
+                    for d in ("cuda", "cpu"))
+        errs["encode_assemble"] = max(errs["encode_assemble"],
+                                      _byte_err(got, ref))
+        check(torch.equal(got.cpu(), ref), f"assemble overlap {case}: "
+              "kernel != plain")
+    say("phase9", assemble_overlap_cases=len(cases), exact=True)
+
+
 def _encode_moved(meta, osz, desc, stats) -> dict:
     """The bytes each new kernel must move for this batch, from what its
     run wrote rather than from the planes' capacity. A decide pass reads
@@ -1835,6 +1992,7 @@ def phase9(errs, counts, timing, data):
                 **{f"{k}_plain_ms": f"{v:.1f}" for k, v in plain_ms.items()})
     _garbage_encode(errs)
     say("phase9", garbage_planes="no fault", exact=True)
+    _assemble_overlaps(errs)
     _encode_full_block(errs, timing)
 
     # the routes end to end on phase 3's 256 MiB, level 1
@@ -1899,14 +2057,17 @@ def main() -> int:
     errs = dict.fromkeys(KERNELS, 0)
     counts = dict.fromkeys(KERNELS, 0)
     timing = {}
-    if "--emit-only" in sys.argv:  # [--ab ROOT...]: the emit kernel's
-        # classes and windows, A/B against other checkouts' kernels
+    only = {  # [--ab ROOT...]: one family's kernels on the class blocks,
+        # A/B against other checkouts' kernels
+        "--emit-only": lambda others: (_emit_classes(errs, timing, others),
+                                       _emit_windows(others),
+                                       _decide_classes(others)),
+        "--bulk-only": _bulk_classes}
+    mode = next((a for a in sys.argv[1:] if a in only), None)
+    if mode:
         args = sys.argv[1:]
-        others = (_ab_libraries(map(Path, args[args.index("--ab") + 1:]))
-                  if "--ab" in args else None)
-        _emit_classes(errs, timing, others)
-        _emit_windows(others)
-        _decide_classes(others)
+        only[mode](_ab_libraries(map(Path, args[args.index("--ab") + 1:]))
+                   if "--ab" in args else None)
         say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,

@@ -1,9 +1,11 @@
-"""Gang streams for the gang decoder's tests (no JAX here: the GPU tests
-import this module on a machine without it): hand-built streams whose
-records overlap, read their own rows or carry odd segment bounds, the
-streams on which the port deliberately differs from the interpreted
-Pallas kernel, garbage planes, and the full blocks of the classes
-``chip_smoke.py`` decodes."""
+"""Streams for the decoders' tests (importing this module needs no JAX:
+the GPU tests import it on a machine without JAX; only
+``check_corrupt_difference``, a CPU test's helper, imports it): hand-built gang streams whose records
+overlap, read their own rows or carry odd segment bounds, the streams on
+which the port deliberately differs from the interpreted Pallas kernel,
+garbage planes; hand-built bulk streams whose records overlap; the
+corrupt containers on which three decode routes differ from the JAX
+routes; and the full blocks of the classes ``chip_smoke.py`` decodes."""
 
 import numpy as np
 
@@ -164,6 +166,162 @@ def garbage_planes(seed):
     gm[1, 16:22] = rng.integers(0, n_rounds + 20, 6)
     return (lit, words.view(np.int32).reshape(groups, rec_rows, 128),
             gm.view(np.int32), nblk, slot_recs, max_win)
+
+
+# Bulk streams (``native.bulk_prep``'s entry ABI, ``decode_bulk.py``) whose
+# records overlap, so that the order in which an entry applies its units
+# (U gangs of 8, U singles, W gangs of 8, W singles; each unit replaces the
+# bytes it covers with the OR of its records' bytes) shows. Each case is
+# (abi, nblk, entries) with entries (row, U records, W records) in stream
+# order, member i % nblk of a merged ABI taking entry i; records are
+# (dst_off, len, w1). W sources read only bytes that earlier entries
+# wrote: the JAX kernel's window starts as scratch.
+_GANG8 = [(0, 64, _u(_LIT, 0)), (32, 64, _u(_LIT + 1, 100)),
+          (64, 8, FILL | 0x21), (60, 10, _u(_LIT + 2, 509)),
+          (200, 40, _u(_LIT + 3, 0)), (210, 4, FILL | 0x0F),
+          (300, 212, _u(_LIT + 4, 77)), (0, 3, FILL | 0x80)]
+_ROWS01 = [(0, [(0, 512, _u(_LIT, 0))], []),
+           (1, [(0, 512, _u(_LIT + 1, 7))], [])]
+_W_GANG8 = [(0, 64, _w(0, 10)), (32, 64, _w(1, 500)), (40, 8, FILL | 0x80),
+            (100, 100, _w(0, 0)), (150, 20, _w(1, 3)), (300, 12, FILL | 0x3C),
+            (305, 30, _w(0, 200)), (400, 112, _w(1, 100))]
+BULK_CASES = {
+    # two U fills on one entry, one unit each: the second replaces
+    # bytes 2-3 (the reference gives [1, 1, 2, 2, 2, 2])
+    "two_u_singles": ("bulk", 1, [
+        (0, [(0, 4, FILL | 0x01), (2, 4, FILL | 0x02)], [])]),
+    # the same two fills as the head of a gang of 8: ORed
+    "u_gang_of_8": ("bulk", 1, [
+        (3, [(0, 4, FILL | 0x01), (2, 4, FILL | 0x02)] + _GANG8[2:], [])]),
+    # a gang of 8 with overlaps, then two singles over it and each other
+    "u_gang_then_singles": ("bulk", 1, [
+        (5, _GANG8 + [(16, 40, _u(_LIT + 5, 300)), (50, 10, FILL | 0x05)],
+         [])]),
+    # U fills, then a W gang of 8 and three W singles over them and over
+    # each other; then the row again, its W records reading it as the
+    # entry before left it
+    "w_overlaps": ("bulk", 1, _ROWS01 + [
+        (2, [(0, 16, FILL | 0x01), (8, 16, FILL | 0x02)],
+         _W_GANG8 + [(4, 20, _w(1, 0)), (10, 5, FILL | 0x7E),
+                     (190, 20, _w(0, 400))]),
+        (2, [], [(0, 8, _w(2, 100)), (96, 8, _w(2, 0))])]),
+    # a pair on one alternating stream, both members overlapping
+    "pair": ("bulk2", 2, [
+        (0, [(0, 4, FILL | 0x01), (2, 4, FILL | 0x02)], []),
+        (7, _GANG8 + [(16, 40, _u(_LIT + 5, 300))], []),
+        (1, [(0, 512, _u(_LIT + 6, 9))], []),
+        (7, [], [(0, 30, _w(7, 200)), (20, 30, FILL | 0x66)]),
+        (0, [], [(0, 512, _w(1, 0)), (0, 64, _w(1, 10)),
+                 (32, 64, _w(1, 500)), (40, 8, FILL | 0x80)]),
+        (8, [], [])]),
+    # three blocks round-robin; member 1's and 2's last entries are empty
+    "group_of_3": ("bulkn", 3, [
+        _ROWS01[0], (9, [(0, 4, FILL | 0x01), (2, 4, FILL | 0x02)], []),
+        (6, [(0, 512, _u(_LIT + 2, 3))], []),
+        _ROWS01[1], (4, _GANG8, []),
+        (7, [], [(0, 100, _w(6, 50)), (90, 20, FILL | 0x03)]),
+        (2, [(0, 16, FILL | 0x01), (8, 16, FILL | 0x02)],
+         _W_GANG8 + [(4, 20, _w(1, 0))]),
+        (0, [(1, 2, FILL | 0x11)], [(8, 8, _w(4, 20))]),
+        (6, [(10, 10, FILL | 0x44)], []),
+        (3, [], [(0, 64, _w(0, 0)), (32, 64, _w(1, 0))]),
+        (9, [], []), (8, [], [])]),
+}
+
+_BULK_META = {"bulk": (8, 1, 5), "bulk2": (8, 2, 5), "bulkn": (16, 4, 9)}
+
+
+def bulk_hand_planes(case):
+    """Planes of one BULK_CASES case: (abi, nblk, lit, rec, meta, covered),
+    numpy; ``lit`` (nblk, 8, 128) int32 random literal rows, ``rec`` (1, 8,
+    128) int32 and ``meta`` (1, meta words) int32 with one window a member,
+    and ``covered`` (nblk, 4096, 512) bool, the bytes some record covers.
+    Every case has these shapes. Decode with ``max_win=1``."""
+    abi, nblk, entries = BULK_CASES[case]
+    words, covered = [], np.zeros((nblk, 4096, 512), bool)
+    for i, (row, u, w) in enumerate(entries):
+        words += [row, len(u) << 16 | len(w)]
+        for off, ln, w1 in u + w:
+            words += [off << 10 | ln, w1]
+            covered[i % nblk, row, off:off + ln] = True
+    rec = np.zeros(8 * 128, np.uint32)
+    rec[:len(words)] = words
+    meta_words, nwin, end = _BULK_META[abi]
+    meta = np.zeros((1, meta_words), np.uint32)
+    meta[0, 0] = 512
+    meta[0, nwin:nwin + nblk] = 1
+    meta[0, end] = len(words)
+    lit = np.random.default_rng(71).integers(
+        -2**31, 2**31, (nblk, 8, 128), dtype=np.int32)
+    return (abi, nblk, lit, rec.view(np.int32).reshape(1, 8, 128),
+            meta.view(np.int32), covered)
+
+
+# Corrupt level-1 containers that ``native.decompress`` accepts, on which
+# the ``pallas``, ``bulk`` and ``stream`` routes differ from the JAX routes
+# (ROADMAP §3): a match reads output bytes no token wrote. The JAX kernels
+# give their scratch there (in interpret mode the high byte 0x80 of the
+# 0x80000000 fill), the port 0; no decoder defines these bytes. Each is
+# (input, {container byte: new value}).
+CORRUPT = {"text300": ((300, 3), {185: 0x61}),
+           "text60000": ((60000, 3),
+                         {13981: 0xF2, 15783: 0x81, 25492: 0x52})}
+# case -> route -> the decoded bytes on which the two differ
+CORRUPT_DIFFERENCES = {
+    "text300": {"pallas": [275, 279, 283, 287, 291, 295, 299],
+                "bulk": [283, 287, 291, 295, 299], "stream": []},
+    "text60000": {
+        "pallas": [*range(57208, 57256, 4), 57271, 57432, 57453, 57457,
+                   57461, 57578, 57596, 57600, 57629, 57633, 57637, 57842,
+                   57865, 57869, 57873, 57877, 57880, 57884, 57948, 57998,
+                   58002, 58146, 58149, 58153, 58232, 58286, 58289, 58293,
+                   58348, 58351, 58355, 58393, 58406, 58417, 58528, 58575,
+                   58643, 58689, 58693, 58800, 58815, 58818, 58822, 58865,
+                   58998, 59001, 59005, 59016, 59188, 59192, 59275, 59330,
+                   59377, 59394, 59397, 59401, 59528, 59530, 59610, 59614,
+                   59664, 59666, 59768, 59819, 59980, 59994, 59996],
+        "bulk": [*range(57216, 57256, 4), 57454, 57458, 57630, 57634, 57881,
+                 58150, 58290, 58352, 58819, 59002, 59398]}}
+CORRUPT_DIFFERENCES["text60000"]["stream"] = \
+    CORRUPT_DIFFERENCES["text60000"]["pallas"]
+
+
+def corrupt_container(case, native):
+    """The CORRUPT container ``case``, made with ``native`` (the port's or
+    the JAX package's binding of the host core): the input and the
+    container."""
+    from turbosqueeze_tpu_torch.utils.corpus import synthetic_text
+
+    (n, seed), flips = CORRUPT[case]
+    data = synthetic_text(n, seed=seed)
+    c = bytearray(native.compress(data, True, level=1))
+    for i, v in flips.items():
+        c[i] = v
+    return data, bytes(c)
+
+
+def check_corrupt_difference(case, impl, native):
+    """The CPU tests' pin of a CORRUPT container on route ``impl``: the
+    JAX route (interpreted; JAX is imported here only) and the port's plain
+    version differ on exactly the listed bytes, the reference's 0x80 and
+    the port's 0, and ``native.decompress`` accepts the container."""
+    import jax
+    from turbosqueeze_tpu.parallel import mesh as ref_mesh
+    from turbosqueeze_tpu.parallel import pipeline as ref_pipeline
+    from turbosqueeze_tpu_torch.parallel import pipeline
+
+    data, stream = corrupt_container(case, native)
+    native.decompress(stream)
+    ref = np.frombuffer(ref_pipeline.decompress(
+        stream, mesh=ref_mesh.block_mesh(jax.devices()[:1]), impl=impl),
+        np.uint8)
+    got = np.frombuffer(pipeline.decompress(stream, device="cpu", impl=impl),
+                        np.uint8)
+    differ = np.zeros(len(data), bool)
+    differ[CORRUPT_DIFFERENCES[case][impl]] = True
+    assert len(ref) == len(got) == len(data)
+    assert np.array_equal(got[~differ], ref[~differ])
+    assert (ref[differ] == 0x80).all() and not got[differ].any()
 
 
 # the classes of class_blocks, in their order

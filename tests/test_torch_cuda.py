@@ -30,9 +30,10 @@ from turbosqueeze_tpu_torch.utils.corpus import (synthetic_binary,
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from emit_cases import table_cases  # noqa: E402
-from gang_streams import (CASES, CLASSES, DIFFERENCES,  # noqa: E402
-                          class_blocks, garbage_planes, hand_planes,
-                          open_slot_blocks)
+from gang_streams import (BULK_CASES, CASES, CLASSES,  # noqa: E402
+                          CORRUPT, DIFFERENCES, bulk_hand_planes,
+                          class_blocks, corrupt_container, garbage_planes,
+                          hand_planes, open_slot_blocks)
 
 pytestmark = pytest.mark.cuda
 
@@ -511,6 +512,61 @@ def test_bulk_kernel_garbage_planes_match_plain(native, abi, nblk):
     ref = _bulk_decode(abi, nblk, planes, "cpu", **kw)
     assert torch.equal(got.cpu(), ref)
     assert ref.any()
+
+
+@pytest.mark.parametrize("case", list(BULK_CASES))
+def test_bulk_kernel_hand_built_streams_match_plain(native, case):
+    """Entries whose records overlap, through each ABI's case
+    (``gang_streams.BULK_CASES``): the kernel applies an entry's units in
+    the plain version's order and gives its words exactly."""
+    abi, nblk, *planes, _ = bulk_hand_planes(case)
+    got = _bulk_decode(abi, nblk, planes, "cuda", max_win=1)
+    ref = _bulk_decode(abi, nblk, planes, "cpu", max_win=1)
+    assert torch.equal(got.cpu(), ref)
+    assert ref.any()
+
+
+@pytest.mark.parametrize("case", [c for c, (abi, _, _) in BULK_CASES.items()
+                                  if abi == "bulk"])
+def test_assemble_kernel_hand_built_streams_match_plain(native, case):
+    """The single-stream overlap cases through the assemble entry, their
+    literal rows as the input plane's first rows beside a random side
+    plane: the kernel gives its plain version's words exactly."""
+    _, _, lit, rec, meta, _ = bulk_hand_planes(case)
+    rng = np.random.default_rng(72)
+    planes = [np.zeros((1, rows, 128), np.int32) for rows in
+              (PE.IN_ROWS, PEB.SIDE_ROWS, PEB.REC_ROWS)]
+    planes[0][:, :lit.shape[1]] = lit
+    planes[1][:] = rng.integers(-2**31, 2**31, planes[1].shape,
+                                dtype=np.int32)
+    planes[2][:, :rec.shape[1]] = rec
+    planes.append(meta)
+    before = PEB.launches["assemble"]
+    got = PEB.assemble_batch(*planes_to_torch(*planes, device="cuda"))
+    torch.cuda.synchronize()
+    assert PEB.launches["assemble"] == before + 1
+    ref = PEB.assemble_batch(*planes_to_torch(*planes, device="cpu"))
+    assert torch.equal(got.cpu(), ref)
+    assert ref.any()
+
+
+@pytest.mark.parametrize("impl, kernel", [("pallas", "decode_tokens"),
+                                          ("bulk", "decode_bulk"),
+                                          ("stream", "decode_stream")])
+@pytest.mark.parametrize("case", sorted(CORRUPT))
+def test_decode_kernels_corrupt_containers_match_plain(native, case, impl,
+                                                       kernel):
+    """The corrupt containers on which the port differs from the JAX
+    routes (``gang_streams.CORRUPT``): the token, bulk and stream kernels
+    give their plain versions' bytes exactly."""
+    _, stream = corrupt_container(case, native)
+    counts = {"decode_tokens": lambda: PT.launches,
+              "decode_bulk": lambda: PB.launches["bulk"],
+              "decode_stream": lambda: PS.launches}[kernel]
+    before = counts()
+    got = pipeline.decompress(stream, device="cuda", impl=impl)
+    assert counts() > before
+    assert got == pipeline.decompress(stream, device="cpu", impl=impl)
 
 
 @pytest.mark.parametrize("impl", ["bulk", "bulk2", "bulkn"])

@@ -26,6 +26,8 @@ from turbosqueeze_tpu_torch.utils.corpus import (synthetic_binary,
                                                  synthetic_text)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+from gang_streams import (BULK_CASES, CORRUPT, bulk_hand_planes,  # noqa: E402
+                          check_corrupt_difference)
 from test_torch_host_copies import jax_core, port_core  # noqa: E402
 
 MiB = 1 << 20
@@ -234,6 +236,22 @@ def test_garbage_planes_stay_in_bounds():
     assert out.shape == (4, 3 * PB.WIN_ROWS, 128) and out.any()
 
 
+@pytest.mark.parametrize("case", list(BULK_CASES))
+def test_hand_built_streams_match_reference(case):
+    """Entries whose records overlap (``gang_streams.BULK_CASES``): an
+    entry applies U gangs of 8, U singles, W gangs of 8 and W singles in
+    turn, each replacing the bytes it covers with the OR of its records'.
+    Every byte a record covers equals the interpreted kernel's; the rest
+    stays zero (the reference's window starts as scratch there)."""
+    abi, nblk, lit, rec, meta, covered = bulk_hand_planes(case)
+    ref = _ref(abi, nblk, (lit, rec, meta), max_win=1)
+    got = _port(abi, nblk, (lit, rec, meta), max_win=1)
+    ref, got = (x.view(np.uint8).reshape(nblk, -1, 512) for x in (ref, got))
+    win = got[:, :PB.WIN_ROWS]
+    assert np.array_equal(win[covered], ref[:, :PB.WIN_ROWS][covered])
+    assert not win[~covered].any() and not got[:, PB.WIN_ROWS:].any()
+
+
 # --- the pipeline's bulk routes ----------------------------------------------
 
 def _jax(stream, **kw):
@@ -325,3 +343,13 @@ def test_declined_window_falls_back_to_stream(native, routes, monkeypatch):
         assert [name for name, _ in routes] == [
             f"decode_{impl}_batch", "decode_stream_batch"]
     assert len(table) == 2
+
+
+@pytest.mark.parametrize("case", sorted(CORRUPT))
+def test_documented_differences_from_reference(native, case):
+    """Corrupt containers that ``native.decompress`` accepts
+    (``gang_streams.CORRUPT``, ROADMAP §3): a match reads output bytes no
+    token wrote, where the JAX route's kernel gives its scratch (0x80 in
+    interpret mode) and the port 0. The two differ on exactly the listed
+    bytes."""
+    check_corrupt_difference(case, "bulk", native)

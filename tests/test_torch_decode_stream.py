@@ -20,6 +20,7 @@ from turbosqueeze_tpu_torch.kernels import decode_tokens as PT
 from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+from gang_streams import CORRUPT, check_corrupt_difference  # noqa: E402
 from test_torch_host_copies import jax_core, port_core  # noqa: E402
 
 
@@ -114,3 +115,15 @@ def test_corrupt_payload_stays_in_bounds():
                                                   device="cpu"),
                                  out_rows=_rows_for(len(data)))
     assert tuple(out.shape) == (1, _rows_for(len(data)), 128)
+
+
+@pytest.mark.parametrize("case", sorted(CORRUPT))
+def test_documented_differences_from_reference(case):
+    """Corrupt containers that ``native.decompress`` accepts
+    (``gang_streams.CORRUPT``, ROADMAP §3) through ``impl="stream"``: a
+    match reads output bytes no token wrote, where the JAX kernel gives
+    its scratch (0x80 in interpret mode) and the port 0. The two differ
+    on exactly the listed bytes (none on the 300-byte container)."""
+    from turbosqueeze_tpu_torch.runtime import native
+
+    check_corrupt_difference(case, "stream", native)

@@ -22,6 +22,7 @@ from turbosqueeze_tpu_torch.kernels import decode_tokens as PT
 from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+from gang_streams import CORRUPT, check_corrupt_difference  # noqa: E402
 from test_torch_host_copies import jax_core, port_core  # noqa: E402
 
 
@@ -241,3 +242,13 @@ def test_wrapper_refuses_bad_planes_and_counts_no_cpu_launch():
     before = PT.launches
     out = PT.decode_tokens_batch(pay, tok, tok, out_rows=8)
     assert PT.launches == before and not out.any()
+
+
+@pytest.mark.parametrize("case", sorted(CORRUPT))
+def test_documented_differences_from_reference(native, case):
+    """Corrupt containers that ``native.decompress`` accepts
+    (``gang_streams.CORRUPT``, ROADMAP §3) through ``impl="pallas"``: a
+    match reads output bytes no token wrote, where the JAX kernel gives
+    its scratch (0x80 in interpret mode) and the port 0. The two differ
+    on exactly the listed bytes."""
+    check_corrupt_difference(case, "pallas", native)

@@ -17,7 +17,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("decode_bulk.cu", "decode_gang.cu", "decode_stream.cu",
            "decode_tokens.cu", "encode_bulk.cu", "encode_emit.cu",
            "encode_flat.cu")
-HEADERS = ("encode_parse.cuh",)  # included by the encode sources
+HEADERS = ("decode_rows.cuh", "encode_parse.cuh")  # included by sources
 LIB_PATH = (Path(__file__).resolve().parents[2] / "build" / "cuda"
             / "libtsq_torch_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -40,7 +40,9 @@ def build(csrc: Path = CSRC, lib_path: Path = LIB_PATH) -> str:
     or older than a source. Returns the compiler's report (registers,
     spills per kernel), or "" when the library was already current."""
     srcs = [csrc / s for s in SOURCES]
-    newest = max(f.stat().st_mtime for f in srcs + [csrc / h for h in HEADERS])
+    # another checkout (an A/B run's) may not have every header
+    newest = max(f.stat().st_mtime for f in srcs + [csrc / h for h in HEADERS]
+                 if f.exists())
     if lib_path.exists() and lib_path.stat().st_mtime >= newest:
         return ""
     lib_path.parent.mkdir(parents=True, exist_ok=True)

@@ -59,13 +59,12 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "decode_rows.cuh"
+
 namespace {
 
-constexpr int kLanes = 128;         // i32 words per 512-byte row
-constexpr int kRowBytes = 512;
-constexpr int kLaneBytes = 16;      // row bytes a lane owns
-constexpr int kWinRows = 4096;      // 2 MiB window
-constexpr int kTailRows = 130;      // U plane head: previous window
+using namespace tsq_rows;
+
 constexpr int kGmetaWords = 32;
 constexpr int kUWarps = 8;          // warps of a U CTA
 constexpr int kUCtas = 16;          // U CTAs a block
@@ -111,27 +110,6 @@ __device__ __forceinline__ const uint8_t* u_row(const UPlane& p,
                            : nullptr;
 }
 
-__device__ __forceinline__ uint4 load16(const uint8_t* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-
-__device__ __forceinline__ void or_into(uint4& a, const uint4& b) {
-  a.x |= b.x;
-  a.y |= b.y;
-  a.z |= b.z;
-  a.w |= b.w;
-}
-
-// One record's share of a lane's row bytes [p0, p0 + 16), fetched but not
-// yet combined: the two aligned 16-byte chunks of its source row that hold
-// source bytes (scol + p - off) mod 512 (or the fill byte in every byte),
-// the byte shift into them, and the row bytes [lo, hi) it covers (none:
-// lo >= hi). Selects, not branches, so that records interleave.
-struct Piece {
-  uint4 x, y;
-  int lo, hi, sh;
-};
-
 // A U record's piece; the U plane is read-only while the kernel runs, so
 // its loads take the read-only path.
 __device__ __forceinline__ Piece fetch_u(uint32_t w0, uint32_t w1, int p0,
@@ -157,33 +135,6 @@ __device__ __forceinline__ Piece fetch_u(uint32_t w0, uint32_t w1, int p0,
     }
   }
   return q;
-}
-
-// Byte mask of word i (row bytes p0 + 4i ..) from the 16-bit mask m16 of
-// the lane's bytes: each of its 4 bits becomes a 0xFF byte.
-__device__ __forceinline__ uint32_t word_mask(uint32_t m16, int i) {
-  return (((m16 >> (4 * i)) & 0xFu) * 0x00204081u & 0x01010101u) * 0xFFu;
-}
-
-// ORs a fetched piece into the lane's 16 bytes: bytes [sh, sh + 16) of
-// x:y (whole words first, then byte permutes), masked to [lo, hi).
-__device__ __forceinline__ void fold16(uint4& acc, const Piece& q, int p0) {
-  uint32_t t0 = q.x.x, t1 = q.x.y, t2 = q.x.z, t3 = q.x.w, t4 = q.y.x,
-           t5 = q.y.y;
-  if (q.sh & 8) {
-    t0 = t2; t1 = t3; t2 = t4; t3 = t5; t4 = q.y.z; t5 = q.y.w;
-  }
-  if (q.sh & 4) {
-    t0 = t1; t1 = t2; t2 = t3; t3 = t4; t4 = t5;
-  }
-  const uint32_t sel = 0x3210u + 0x1111u * (q.sh & 3);
-  const int l = min(max(q.lo - p0, 0), kLaneBytes);
-  const int h = max(min(q.hi - p0, kLaneBytes), l);
-  const uint32_t m16 = (1u << h) - (1u << l);
-  acc.x |= __byte_perm(t0, t1, sel) & word_mask(m16, 0);
-  acc.y |= __byte_perm(t1, t2, sel) & word_mask(m16, 1);
-  acc.z |= __byte_perm(t2, t3, sel) & word_mask(m16, 2);
-  acc.w |= __byte_perm(t3, t4, sel) & word_mask(m16, 3);
 }
 
 // U records fetched before any is combined: a batch's loads are all in

@@ -27,9 +27,13 @@ then ``n_u`` U records and ``n_w`` W records of two words each:
     ``((a & 511) + p - off) % 512`` of source row ``a >> 9``, a row of the
     U plane for a U record, of the window for a W record.
 
-An entry replaces the bytes its records cover, ORing the records'
-bytes, and reads what the window held before it. Stream order is the
-topological order: a W record reads rows that earlier entries finished.
+An entry reads what the window held before it, and applies its records
+in units, as the JAX kernel does: first the U records in gangs of 8, then
+the ``n_u & 7`` left one at a time, then the W records the same way. A
+unit replaces the bytes its records cover with the OR of their bytes, so
+a byte ends as the OR of the covering records of the last unit that
+covers it; a byte no record covers keeps the row's value. Stream order is
+the topological order: a W record reads rows that earlier entries finished.
 Per window the resolver writes every in-size byte exactly once, so a
 zeroed output is the decode. The three ABIs:
 
@@ -218,8 +222,8 @@ def decode_bulk(abi: str, nblk: int, lit_words: torch.Tensor,
 def _launch(lit_words, rec_words, meta, abi, nblk, out_rows, max_win):
     lit_words, rec_words, meta = (t.contiguous() for t in
                                   (lit_words, rec_words, meta))
-    if rec_words.data_ptr() % 8:
-        raise ValueError("rec_words must be 8-byte aligned")
+    if rec_words.data_ptr() % 16:  # staged by 16-byte async copies
+        raise ValueError("rec_words must be 16-byte aligned")
     B, lit_rows, _ = lit_words.shape
     meta_words, nwin_base, end_base = _ABIS[abi]
     lib = _build.library()
@@ -262,52 +266,83 @@ def _member_entries(words: list, meta: list, abi: str, nblk: int, k: int,
     return out
 
 
+def _units(n_u: int, n_w: int) -> list:
+    """An entry's units in the order the JAX kernel applies them, as record
+    index ranges: the U records in gangs of 8, then the ``n_u & 7`` left
+    one at a time, then the W records the same way."""
+    out = []
+    for base, cnt in ((0, n_u), (n_u, n_w)):
+        whole = cnt & ~7
+        out += [(base + i, base + i + 8) for i in range(0, whole, 8)]
+        out += [(base + i, base + i + 1) for i in range(whole, cnt)]
+    return out
+
+
 def _decode_member(plane, lit, wl, entries):
     """Apply one member's entries in stream order to its output plane
-    (out_rows, 512) uint8. Each entry gathers its records' bytes from the
-    planes as they stand, then writes the bytes they cover."""
+    (out_rows, 512) uint8. An entry reads its sources and its row as they
+    stood before it, then applies its units in order (``_units``): each
+    unit replaces the bytes its records cover with the OR of their bytes,
+    and bytes no record covers keep the row's value."""
     lit_rows = lit.shape[0]
     zero_row = torch.zeros(ROW_BYTES, dtype=torch.uint8)
     for w, q, row, n_u, n_w in entries:
         if row >= WIN_ROWS:  # past the window: writes nothing
             continue
-        acc = torch.zeros(ROW_BYTES, dtype=torch.uint8)
-        spans = []  # the row bytes [lo, hi) the records cover
-        n = min(n_u + n_w, max(0, (len(wl) - q) // 2))  # records past: len 0
-        for j in range(n):
-            w0, w1 = wl[q + 2 * j], wl[q + 2 * j + 1]
-            off = (w0 >> 10) & 511
-            cnt = min(w0 & 1023, ROW_BYTES - off)
-            if not cnt:
-                continue
-            if spans and spans[-1][1] == off:
-                spans[-1][1] = off + cnt
-            else:
-                spans.append([off, off + cnt])
-            if w1 >> 31:  # a fill
-                acc[off:off + cnt] |= w1 & 0xFF
-                continue
-            a = w1 & 0x0FFFFFFF
-            srow, col = a >> 9, a & 511
-            src = zero_row  # a source past its plane reads zeros
-            if j < n_u:  # the U plane: [tail of window w - 1 | literal plane]
-                if srow < TAIL_ROWS:
-                    if w:
-                        src = plane[w * WIN_ROWS - TAIL_ROWS + srow]
-                elif srow - TAIL_ROWS < lit_rows:
-                    src = lit[srow - TAIL_ROWS]
-            elif srow < WIN_ROWS:  # a row of this window
-                src = plane[w * WIN_ROWS + srow]
-            head = min(cnt, ROW_BYTES - col)  # the source wraps in its row
-            acc[off:off + head] |= src[col:col + head]
-            if head < cnt:
-                acc[off + head:off + cnt] |= src[:cnt - head]
         dst = plane[w * WIN_ROWS + row]
-        for lo, hi in spans:
-            dst[lo:hi] = acc[lo:hi]
+        acc = dst.clone()
+        # records past the stream read 0 (len 0), keeping their places
+        n = min(n_u + n_w, max(0, (len(wl) - q) // 2))
+        for lo, hi in _units(n_u, n_w):
+            covered = []  # the unit's row bytes [lo, hi) so far
+            for j in range(lo, min(hi, n)):
+                w0, w1 = wl[q + 2 * j], wl[q + 2 * j + 1]
+                off = (w0 >> 10) & 511
+                cnt = min(w0 & 1023, ROW_BYTES - off)
+                if not cnt:
+                    continue
+                if w1 >> 31:  # a fill
+                    parts = [(off, off + cnt, w1 & 0xFF)]
+                else:
+                    a = w1 & 0x0FFFFFFF
+                    srow, col = a >> 9, a & 511
+                    src = zero_row  # a source past its plane reads zeros
+                    if j < n_u:  # the U plane: [tail of window w - 1 | lit]
+                        if srow < TAIL_ROWS:
+                            if w:
+                                src = plane[w * WIN_ROWS - TAIL_ROWS + srow]
+                        elif srow - TAIL_ROWS < lit_rows:
+                            src = lit[srow - TAIL_ROWS]
+                    elif srow < WIN_ROWS:  # a row of this window
+                        src = plane[w * WIN_ROWS + srow]
+                    head = min(cnt, ROW_BYTES - col)  # the source wraps
+                    parts = [(off, off + head, src[col:col + head])]
+                    if head < cnt:
+                        parts.append((off + head, off + cnt, src[:cnt - head]))
+                for a, b, v in parts:
+                    if not any(a < e and s < b for s, e in covered):
+                        acc[a:b] = v  # the first of the unit to cover them
+                        continue
+                    seen = torch.zeros(b - a, dtype=torch.bool)
+                    for s, e in covered:
+                        seen[max(s, a) - a:max(min(e, b), a) - a] = True
+                    acc[a:b] = torch.where(seen, acc[a:b] | v,
+                                           torch.as_tensor(v, dtype=torch.uint8))
+                covered.append((off, off + cnt))
+        dst.copy_(acc)
 
 
 def _decode_plain(lit_words, rec_words, meta, abi, nblk, out_rows, max_win):
+    """The bulk kernel's plain version: each member's entries in stream
+    order over its zeroed output (``_decode_member``); a byte no record
+    covers stays 0, where the JAX kernel leaves its scratch.
+
+    On a corrupt container, a match can read output bytes that no token
+    has written; the JAX kernel gives its scratch there (in interpret mode
+    the high byte 0x80 of its 0x80000000 fill, on a TPU whatever VMEM
+    held), this version and the CUDA kernel 0. No decoder defines those
+    bytes; ``tests/gang_streams.py::CORRUPT`` pins the containers and
+    bytes where the two differ (ROADMAP §3)."""
     B = lit_words.shape[0]
     out = torch.zeros((B, out_rows, ROW_BYTES), dtype=torch.uint8)
     lit_bytes = lit_words.contiguous().view(torch.uint8).reshape(

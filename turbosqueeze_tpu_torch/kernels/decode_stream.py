@@ -121,6 +121,16 @@ def _pairs(pay: np.ndarray, ext: bool, start: int, end: int):
 
 
 def _decode_stream_plain(payload_words, meta, dict_words, *, out_rows):
+    """The stream kernel's plain version: parses each block's raw payload
+    and runs its symbols over ``[payload | output]`` in order, a preset
+    dictionary at the output's head.
+
+    On a corrupt container, a match can read output bytes that no token
+    has written; the JAX kernel gives its scratch there (in interpret mode
+    the high byte 0x80 of its 0x80000000 fill, on a TPU whatever VMEM
+    held), this version and the CUDA kernel 0. No decoder defines those
+    bytes; ``tests/gang_streams.py::CORRUPT`` pins the containers and
+    bytes where the two differ (ROADMAP §3)."""
     B, pay_rows, _ = payload_words.shape
     pay_bytes, out_bytes = pay_rows * ROW_BYTES, out_rows * ROW_BYTES
     out = torch.zeros((B, pay_bytes + out_bytes), dtype=torch.uint8)

@@ -178,6 +178,15 @@ def _clip_head(pay_bytes: int, dst: int, ln: int, src: int):
 
 
 def _decode_tokens_plain(payload_words, tok_a, tok_b, *, out_rows):
+    """The token kernel's plain version: runs each block's token pairs over
+    ``[payload | output]``, every token in order.
+
+    On a corrupt container, a match can read output bytes that no token
+    has written; the JAX kernel gives its scratch there (in interpret mode
+    the high byte 0x80 of its 0x80000000 fill, on a TPU whatever VMEM
+    held), this version and the CUDA kernel 0. No decoder defines those
+    bytes; ``tests/gang_streams.py::CORRUPT`` pins the containers and
+    bytes where the two differ (ROADMAP §3)."""
     B, pay_rows, _ = payload_words.shape
     pay_bytes = pay_rows * ROW_BYTES
     out = torch.zeros((B, pay_bytes + out_rows * ROW_BYTES),

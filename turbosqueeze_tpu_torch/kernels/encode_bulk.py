@@ -131,6 +131,8 @@ def assemble_batch(input_words: torch.Tensor, side_words: torch.Tensor,
                                  OUT_ROWS_BULK, OUT_WIN)
     planes = [t.contiguous() for t in (input_words, side_words, rec_words,
                                        osz)]
+    if planes[2].data_ptr() % 16:  # staged by 16-byte async copies
+        raise ValueError("rec_words must be 16-byte aligned")
     with torch.cuda.device(dev):
         out = torch.zeros((B, OUT_ROWS_BULK, LANES), dtype=torch.int32,
                           device=dev)
