@@ -21,14 +21,17 @@ Phases:
   1. the gang kernel against its plain PyTorch version, per
      (nblk, slot_recs), over mixed corpora and levels, and on garbage
      planes from three seeds;
-  2. the stream kernel against its plain version, ext on and off, and with
-     a preset dictionary;
+  2. the stream kernel against its plain version, ext on and off, with a
+     preset dictionary, and on random payloads of 8-32 KiB (declared sizes
+     inside and past the output plane, ext on and off) word for word over
+     the whole output plane;
   3. end to end: a 256 MiB input (64 full blocks) compressed at levels 0,
      1 and 2, decoded through the public API, checked against the input
      and the native host decoder, and timed; and the gang kernel on one
      full level-1 block of each of the eight classes (its U and W gangs,
      its time, ms per gang), against its plain version;
-  4. the stream route end to end on a 64 MiB container;
+  4. the stream route end to end on a 64 MiB container, and its kernel
+     alone on the route's windows;
   5. the emit kernel against its plain version and the native core, both
      matchers, ext on and off, mixed blocks (a full random block, a short
      and an empty one), a dictionary base, and the full block of each of
@@ -92,7 +95,12 @@ the native core, with symbols, ms a symbol and bound).
 ``python3 chip_smoke.py --bulk-only [--ab ROOT ...]`` runs only the bulk
 kernel on each class's full level-1 block through every stream ABI, the
 assemble entry and the gang kernel on the same blocks (against the input
-or the native core, with entries or gangs, us a unit and bound). With
+or the native core, with entries or gangs, us a unit and bound).
+``python3 chip_smoke.py --decode-only [--clocks] [--ab ROOT ...]`` runs
+only the token and stream kernels on each class's full block at levels 0
+and 1 (against the input, with format pairs, ms, ns a pair and bound);
+with ``--clocks`` it also builds the kernels with the pair mover's step
+clocks (``TSQ_PAIRS_CLOCKS``) and prints each warp's cycles a batch. With
 ``--ab``, the kernels of each other checkout ``ROOT``
 (``ROOT/turbosqueeze_tpu_torch/kernels/csrc``, for instance the parent
 commit unpacked by ``git archive``) run there too: each held to this
@@ -346,6 +354,25 @@ def phase2(errs):
     (_, payload, ext), = list(iter_container(stream))
     run([payload], [ext], [data], "stream dictionary", dictionary)
     say("phase2", dictionary=len(dictionary), bytes=len(data), exact=True)
+
+    # garbage payloads of 8-32 KiB, declared sizes inside and past the
+    # output plane, ext on and off: word for word over the whole plane
+    rng = np.random.default_rng(9)
+    for k, pay_rows in enumerate((16, 32, 48, 64)):
+        pw = rng.integers(-2**31, 2**31, (4, pay_rows, 128), dtype=np.int32)
+        sizes = [int(rng.integers(1, 96 * 512)), 96 * 512 + 1, 2**31 - 1,
+                 int(rng.integers(1, 4000))]
+        meta = DS.pack_meta([True, False, k % 2 == 0, k < 2], sizes)
+        got = DS.decode_stream_batch(*planes_to_torch(pw, meta, device="cuda"),
+                                     out_rows=96)
+        ref = DS.decode_stream_batch(*planes_to_torch(pw, meta, device="cpu"),
+                                     out_rows=96)
+        diff = (got.cpu().view(torch.uint8).to(torch.int16)
+                - ref.view(torch.uint8).to(torch.int16)).abs().max()
+        errs["decode_stream"] = max(errs["decode_stream"], int(diff))
+        check(torch.equal(got.cpu(), ref) and bool(ref.any()),
+              f"stream garbage payloads, {pay_rows} rows: kernel != plain")
+    say("phase2", garbage_payloads=4, exact=True)
 
     # corrupt payloads: random bytes declaring a full block, a declared
     # size far past the output, and a stomped stream through the pipeline;
@@ -607,8 +634,21 @@ def phase4(errs, counts, timing):
     e2e_ms = _host_ms(lambda: _main_path(
         counts, lambda: pipeline.decompress(stream, impl="stream")), 3)
 
-    # one full block at the main path's shapes: kernel vs plain version
+    # the kernel alone on the route's windows, packed as the route packs
+    # them
     _, table = scan_block_table(stream)
+    dev = []
+    for lo in range(0, len(table), pipeline.WINDOW_BLOCKS):
+        win = table[lo:lo + pipeline.WINDOW_BLOCKS]
+        pw = np.stack([DK.pack_payload_words(stream[o:o + n])
+                       for o, n, _ in win])
+        dev.append(planes_to_torch(pw, DS.pack_meta(
+            [e for _, _, e in win], pipeline._declared_sizes(stream, win)),
+            device="cuda"))
+    kernel_ms = _cuda_ms(lambda: [DS.decode_stream_batch(*p) for p in dev], 3)
+    del dev
+
+    # one full block at the main path's shapes: kernel vs plain version
     off, psz, ext = table[1]  # a text block
     size = stream[off] | stream[off + 1] << 8 | stream[off + 2] << 16
     planes = (DK.pack_payload_words(stream[off:off + psz])[None],
@@ -618,13 +658,15 @@ def phase4(errs, counts, timing):
     timing["decode_stream"] = (
         _cuda_ms(lambda: DS.decode_stream_batch(*blk), 3),
         _host_ms(lambda: DS.decode_stream_batch(*blk_h), 1),
-        _nbytes(*blk, DS.decode_stream_batch(*blk)))
+        psz + 32 + size)  # the payload, the meta row, the block's bytes
     _compare(errs, "decode_stream",
              _bytes_of(DS.decode_stream_batch(*blk), 0, 0, size),
              _bytes_of(DS.decode_stream_batch(*blk_h), 0, 0, size),
              data[4 * MiB:4 * MiB + size], "stream full block")
     say("phase4", input_mb=f"{mb:.1f}", exact=True,
-        decode_MBps=f"{mb / e2e_ms * 1e3:.1f}")
+        decode_MBps=f"{mb / e2e_ms * 1e3:.1f}",
+        kernel_only_MBps=f"{mb / kernel_ms * 1e3:.1f}",
+        kernel_ms=f"{kernel_ms:.2f}")
 
 
 def _emit_compare(errs, planes, ext, matcher, what):
@@ -1208,7 +1250,7 @@ def phase7(errs, counts, timing, data, streams):
         _cuda_ms(lambda: DK.decode_tokens_batch(*dev, out_rows=out_rows), 5),
         _host_ms(lambda: DK.decode_tokens_batch(*planes, out_rows=out_rows),
                  1),
-        _nbytes(*dev, DK.decode_tokens_batch(*dev, out_rows=out_rows)))
+        _tokens_moved(parsed[0], size))
     say("phase7", full_block=True, tokens=len(parsed[0][1]),
         kernel_ms=f"{timing['decode_tokens'][0]:.4f}",
         plain_ms=f"{timing['decode_tokens'][1]:.1f}")
@@ -1418,6 +1460,122 @@ def _bulk_classes(others=None):
             *dev, nblk=1, slot_recs=srecs), got,
               gangs=int(max(gm[16:16 + 2 * int(gm[8])], default=0)))
         del dev, got
+
+
+def _tokens_moved(parsed, size: int) -> int:
+    """Bytes the token kernel must move for one tokenized block: its
+    payload, two words a token and a count a chunk, and the block's
+    output."""
+    from turbosqueeze_tpu_torch.kernels import decode_tokens as DK
+
+    n = len(parsed[1])
+    return len(parsed[0]) + 8 * n + 4 * DK.n_chunks_for_tokens(n) + size
+
+
+_STEPS = ("mover_wait", "jump", "load", "store", "prep_wait", "form",
+          "paint", "entries", "feed_busy", "feed_wait")
+
+
+def _clocks_library():
+    """This tree's kernels built with the pair mover's step clocks
+    (``TSQ_PAIRS_CLOCKS``, decode_pairs.cuh) into ``build/cuda/clocks/``,
+    loaded."""
+    import ctypes
+
+    from turbosqueeze_tpu_torch.kernels import _build
+
+    path = _build.LIB_PATH.parent / "clocks" / _build.LIB_PATH.name
+    _build.build(_build.CSRC, path, ("-DTSQ_PAIRS_CLOCKS",))
+    lib = _build.load(path)
+    for k in ("tokens", "stream"):
+        getattr(lib, f"tsq_decode_{k}_clocks").argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def _decode_clocks(lib, kname, fn, what):
+    """One launch of ``fn`` on the clocked library: lane 0's cycles a
+    batch in each step of the moving, preparing and feeding warps, the
+    batches and hull bytes a batch."""
+    import ctypes
+
+    from turbosqueeze_tpu_torch.kernels import _build
+
+    entry = getattr(lib, f"tsq_{kname}_clocks")
+    buf = (ctypes.c_ulonglong * 12)()
+    _build.check_launch(entry(buf), kname)
+    _with(lib, fn)
+    torch.cuda.synchronize()
+    _build.check_launch(entry(buf), kname)
+    c = list(buf)
+    n = max(1, c[10])
+    say("clocks", kernel=kname, **what, batches=c[10],
+        hull_bytes=f"{c[11] / n:.1f}",
+        **{k: f"{c[i] / n:.0f}" for i, k in enumerate(_STEPS)})
+
+
+def _decode_classes(others=None, clocks=None):
+    """The token and stream kernels on each class's full block
+    (``class_blocks``) at levels 0 and 1, ext on, one block a launch at the
+    main path's plane shapes: each held to the input; its time (the mean
+    of two medians of 3), the block's format pairs, ns a pair and the bound
+    from the bytes it must move. With ``others`` (other checkouts' kernel
+    libraries by name), each is held to this library's words and timed in
+    turns with it ("new"). With ``clocks`` (``_clocks_library``), one more
+    launch a block prints the mover's cycles a batch by step."""
+    from gang_streams import CLASSES
+    from turbosqueeze_tpu_torch import block
+    from turbosqueeze_tpu_torch.kernels import _build
+    from turbosqueeze_tpu_torch.kernels import decode_stream as DS
+    from turbosqueeze_tpu_torch.kernels import decode_tokens as DK
+    from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
+    from turbosqueeze_tpu_torch.parallel import pipeline
+    from turbosqueeze_tpu_torch.runtime import native
+
+    blocks = _e2e_input(len(CLASSES))
+    libs = {**(others or {}), "new": _build.library()}
+    for level in (0, 1):
+        for b, name in enumerate(CLASSES):
+            blk = blocks[b * 4 * MiB:(b + 1) * 4 * MiB]
+            payload = native.compress(blk, True, level=level)[19:]
+            parsed = block.tokenize_with_dict(payload, True, None)
+            pairs = -(-len(parsed[1]) // 2)
+            with ThreadPoolExecutor() as pool:
+                planes, out_rows = pipeline._token_planes([parsed], pool,
+                                                          False)
+            runs = {
+                "decode_tokens": (
+                    [p.cuda() for p in planes],
+                    lambda dev: DK.decode_tokens_batch(*dev,
+                                                       out_rows=out_rows),
+                    _tokens_moved(parsed, len(blk))),
+                "decode_stream": (
+                    planes_to_torch(DK.pack_payload_words(payload)[None],
+                                    DS.pack_meta([True], [len(blk)]),
+                                    device="cuda"),
+                    lambda dev: DS.decode_stream_batch(*dev),
+                    len(payload) + 32 + len(blk))}
+            for kname, (dev, fn, moved) in runs.items():
+                got = fn(dev)
+                check(_bytes_of(got, 0, 0, len(blk)) == blk,
+                      f"{kname} {name} level {level} != input")
+                fns = {k: (lambda lib=lib: _with(lib, lambda: fn(dev)))
+                       for k, lib in libs.items()}
+                for k in others or ():
+                    check(torch.equal(fns[k](), got), f"A/B {k}: {kname} "
+                          f"{name} level {level} != this library's")
+                t = _ab_ms(fns)
+                ms = statistics.mean(t["new"])
+                say("decode", kernel=kname, level=level, block=name,
+                    pairs=pairs, kernel_ms=f"{ms:.4f}",
+                    ns_per_pair=f"{1e6 * ms / pairs:.2f}",
+                    bound_ms=f"{moved / HBM_BYTES_PER_MS:.6f}",
+                    **{f"{k}_ms": "/".join(f"{x:.4f}" for x in v)
+                       for k, v in t.items()})
+                if clocks is not None:
+                    _decode_clocks(clocks, kname, lambda: fn(dev),
+                                   {"level": level, "block": name})
+                del got
+            del runs
 
 
 def _bulk_compare(errs, abi, nblk, planes, datas, what, base=0, **kw):
@@ -2062,12 +2220,15 @@ def main() -> int:
         "--emit-only": lambda others: (_emit_classes(errs, timing, others),
                                        _emit_windows(others),
                                        _decide_classes(others)),
-        "--bulk-only": _bulk_classes}
+        "--bulk-only": _bulk_classes,
+        "--decode-only": lambda others: _decode_classes(
+            others, _clocks_library() if "--clocks" in sys.argv else None)}
     mode = next((a for a in sys.argv[1:] if a in only), None)
     if mode:
         args = sys.argv[1:]
-        only[mode](_ab_libraries(map(Path, args[args.index("--ab") + 1:]))
-                   if "--ab" in args else None)
+        roots = [a for a in args[args.index("--ab") + 1:]
+                 if not a.startswith("--")] if "--ab" in args else []
+        only[mode](_ab_libraries(map(Path, roots)) if roots else None)
         say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,

@@ -357,6 +357,56 @@ def test_token_kernel_garbage_planes_match_plain(native):
     assert torch.equal(got.cpu(), ref)
 
 
+@pytest.mark.parametrize("level", [0, 1])
+@pytest.mark.parametrize("cls", range(len(CLASSES)), ids=CLASSES)
+def test_token_and_stream_kernels_class_blocks(native, full_class_blocks,
+                                               cls, level):
+    """One full 4 MiB block of each class at levels 0 and 1, one block a
+    launch at the main path's plane shapes: both kernels give the
+    input."""
+    from turbosqueeze_tpu_torch import block
+
+    data = full_class_blocks[cls]
+    payload = native.compress(data, True, level=level)[19:]
+    parsed = block.tokenize_with_dict(payload, True, None)
+    with ThreadPoolExecutor() as pool:
+        planes, out_rows = pipeline._token_planes([parsed], pool, False)
+    got = PT.decode_tokens_batch(*(p.cuda() for p in planes),
+                                 out_rows=out_rows)
+    assert _words_bytes(got, 0, 0, len(data)) == data
+    got = PS.decode_stream_batch(*planes_to_torch(
+        PT.pack_payload_words(payload)[None],
+        PS.pack_meta([True], [len(data)]), device="cuda"))
+    assert _words_bytes(got, 0, 0, len(data)) == data
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_stream_kernel_garbage_payloads_match_plain(native, seed):
+    """Random payloads of 8-32 KiB, declared sizes inside and past the
+    output plane, ext on and off (seed 3 with a preset dictionary): the
+    parse and the pair mover stay inside their planes and give the plain
+    version's words over the whole output plane."""
+    rng = np.random.default_rng(500 + seed)
+    pay_rows, out_rows = 16 * (1 + seed), 96
+    pw = rng.integers(-2**31, 2**31, (4, pay_rows, 128), dtype=np.int32)
+    sizes = [int(rng.integers(1, out_rows * 512)), out_rows * 512 + 1,
+             2**31 - 1, int(rng.integers(1, 4000))]
+    planes = [pw]
+    if seed == 3:
+        d = rng.bytes(5000)
+        planes += [PS.pack_meta([True, False] * 2, sizes, dict_len=len(d)),
+                   PS.pack_dict_words(d)]
+    else:
+        planes.append(PS.pack_meta([True, False, seed % 2 == 0, seed < 2],
+                                   sizes))
+    got = PS.decode_stream_batch(*planes_to_torch(*planes, device="cuda"),
+                                 out_rows=out_rows)
+    ref = PS.decode_stream_batch(*planes_to_torch(*planes, device="cpu"),
+                                 out_rows=out_rows)
+    assert torch.equal(got.cpu(), ref)
+    assert ref.any()
+
+
 def test_gang_kernel_three_windows_matches_plain(native):
     """A full 4 MiB block with a 33 KB dictionary spans three 2 MiB
     windows of the dict-extended space (max_win = 3)."""

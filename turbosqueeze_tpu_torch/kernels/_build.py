@@ -17,7 +17,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("decode_bulk.cu", "decode_gang.cu", "decode_stream.cu",
            "decode_tokens.cu", "encode_bulk.cu", "encode_emit.cu",
            "encode_flat.cu")
-HEADERS = ("decode_rows.cuh", "encode_parse.cuh")  # included by sources
+HEADERS = ("decode_pairs.cuh", "decode_rows.cuh",
+           "encode_parse.cuh")  # included by sources
 LIB_PATH = (Path(__file__).resolve().parents[2] / "build" / "cuda"
             / "libtsq_torch_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -35,10 +36,12 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def build(csrc: Path = CSRC, lib_path: Path = LIB_PATH) -> str:
-    """Compile the library from the sources in ``csrc`` if it is missing
-    or older than a source. Returns the compiler's report (registers,
-    spills per kernel), or "" when the library was already current."""
+def build(csrc: Path = CSRC, lib_path: Path = LIB_PATH,
+          flags: tuple = ()) -> str:
+    """Compile the library from the sources in ``csrc`` (with the extra
+    nvcc ``flags``) if it is missing or older than a source. Returns the
+    compiler's report (registers, spills per kernel), or "" when the
+    library was already current."""
     srcs = [csrc / s for s in SOURCES]
     # another checkout (an A/B run's) may not have every header
     newest = max(f.stat().st_mtime for f in srcs + [csrc / h for h in HEADERS]
@@ -50,7 +53,8 @@ def build(csrc: Path = CSRC, lib_path: Path = LIB_PATH) -> str:
     objs = [lib_path.with_name(f"{s.stem}.{tag}.o") for s in srcs]
     # one nvcc per source, all at once: the build time is the slowest
     # source's, not the sum
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(o),
+                               str(s)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for s, o in zip(srcs, objs)]
     report = []
