@@ -6,7 +6,11 @@ containers (``turbosqueeze_tpu_torch.decompress(stream, backend="cuda")``
 and ``compress(data, backend="cuda", level=L)``), and the host-tokenized
 decode (``pipeline.decompress(stream, impl="pallas")``,
 ``decompress_to_words``), and the bulk record-stream decode
-(``pipeline.decompress(stream, impl="bulk"|"bulk2"|"bulkn")``). They run
+(``pipeline.decompress(stream, impl="bulk"|"bulk2"|"bulkn")``), and the
+entry points around them: the TSQX serving profile (``tsqx.pack``,
+``decompress`` and ``decode_to_words``), ``pipeline.decompress_to_file``,
+the CLI (``python -m turbosqueeze_tpu_torch.cli``) and the job engine
+(``runtime/jobs.py``). They run
 five hand-written CUDA kernels: the gang-stream decoder, the raw-payload
 stream decoder, the token emitter (two matchers: the upstream's hash table
 at level 0, phase-A candidates at level 1), the token-chunk decoder and the
@@ -74,7 +78,20 @@ Phases:
      level 1, byte-identical to ``native.compress``, timed with the layers
      apart and the routes' peak device memory, and 64 MiB of it with a
      33 KB dictionary through both, byte-identical to
-     ``native.compress_dict``.
+     ``native.compress_dict``;
+ 10. the serving profile and the entry points around the API: phase 3's
+     level-1 container packed into TSQX at nblk 1, 4 and 8 (pack time),
+     each decoded through ``decompress`` (a cold run and three warm ones,
+     MB/s, host CPU seconds over wall) with its layers apart (the copy
+     into pinned memory, upload, the gang kernel, download), then, while
+     workers run the gang kernel's plain version on group 0 of each pack,
+     the CLI in one subprocess a verb on 64 MiB (``c --level 1``, ``x``,
+     ``d`` of both containers, ``info``, ``verify``); every block of each
+     pack through ``tsqx.decode_to_words`` and group 0's words against the
+     plain version's; the level-1 container through
+     ``decompress_to_file`` with every route of its set (``gang`` timed);
+     eight compress jobs at once through ``JobEngine`` (levels 0 and 1,
+     byte-identical to ``native.compress``) and eight decompress jobs.
 
 Every kernel is held against its plain version at zero tolerance over the
 bytes the format defines (each block's first ``size`` bytes, or each
@@ -2201,6 +2218,248 @@ def phase9(errs, counts, timing, data):
             blocks=sum(1 for _ in iter_container(got)))
 
 
+def _plain_tsqx_group(args):
+    """The gang kernel's plain version on one TSQX group's planes, in a
+    worker: (words, milliseconds)."""
+    from turbosqueeze_tpu_torch.kernels import decode_gang as DG
+    from turbosqueeze_tpu_torch.kernels.decode_bulk import MAX_WIN
+    from turbosqueeze_tpu_torch.kernels.decode_tokens import OUT_ROWS
+
+    torch.set_num_threads(1)
+    planes, nblk, srecs = args
+    t0 = time.perf_counter()
+    words = DG._decode_gang_plain(*(torch.from_numpy(p) for p in planes),
+                                  nblk=nblk, out_rows=OUT_ROWS,
+                                  max_win=MAX_WIN, slot_recs=srecs)
+    return words.numpy(), (time.perf_counter() - t0) * 1e3
+
+
+def _cpu_wall(fn):
+    """(result, wall ms, host CPU seconds over wall seconds) of ``fn()``;
+    the CPU seconds are the process's, every thread's."""
+    cpu0, t0 = time.process_time(), time.perf_counter()
+    r = fn()
+    wall = time.perf_counter() - t0
+    return r, wall * 1e3, (time.process_time() - cpu0) / wall
+
+
+def _tsqx_layers(view, dev):
+    """One TSQX decode's layers apart, on all of its batches: the copy of
+    the file's planes into pinned memory (host ms), their upload, the gang
+    kernel and the download (device ms, CUDA events, median of 3)."""
+    from turbosqueeze_tpu_torch import tsqx
+    from turbosqueeze_tpu_torch.kernels import decode_gang as DG
+
+    batches = [(lo, min(lo + tsqx.BATCH_GROUPS, view.n_groups))
+               for lo in range(0, view.n_groups, tsqx.BATCH_GROUPS)]
+    staged = []
+
+    def stage():
+        staged[:] = [tsqx._host_planes(view, lo, hi, True)
+                     for lo, hi in batches]
+
+    stage_ms = _host_ms(stage, 3)
+    planes = [[t.to(dev, non_blocking=True) for t in b] for b in staged]
+    upload_ms = _cuda_ms(lambda: [d.copy_(h, non_blocking=True)
+                                  for b, hb in zip(planes, staged)
+                                  for d, h in zip(b, hb)], 3)
+
+    def kernels():
+        return [DG.decode_gang_batch(*b, nblk=view.nblk,
+                                     slot_recs=view.slot_recs)
+                for b in planes]
+
+    kernel_ms = _cuda_ms(kernels, 3)
+    outs = kernels()
+    host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+            for o in outs]
+    download_ms = _cuda_ms(lambda: [h.copy_(o, non_blocking=True)
+                                    for h, o in zip(host, outs)], 3)
+    plane_bytes = sum(_nbytes(*b) for b in staged)
+    return stage_ms, upload_ms, kernel_ms, download_ms, plane_bytes
+
+
+def _tsqx_timed(counts, data, stream, mb) -> dict:
+    """Phase 3's level-1 container packed at nblk 1, 4 and 8 and decoded
+    through the API (a cold run and three warm ones, each against the
+    input), with its layers timed apart. Returns {nblk: TSQX bytes}."""
+    import turbosqueeze_tpu_torch as tsq
+    from turbosqueeze_tpu_torch import tsqx
+
+    packs = {}
+    for nblk in (1, 4, 8):
+        packed, pack_ms, pack_cores = _cpu_wall(
+            lambda: tsqx.pack(stream, nblk=nblk))
+        packs[nblk] = packed
+        view = tsqx.TsqxView(packed)
+        before, runs = counts["decode_gang"], []
+        for _ in range(4):  # a cold run, then three warm ones
+            out, ms, cores = _cpu_wall(lambda: _main_path(
+                counts, lambda: tsq.decompress(packed)))
+            check(out == data, f"tsqx nblk {nblk}: api.decompress != input")
+            runs.append((None, ms, cores))
+        check(counts["decode_gang"] > before,
+              f"tsqx nblk {nblk}: the gang kernel never launched")
+        stage_ms, up_ms, kernel_ms, down_ms, plane_bytes = _tsqx_layers(
+            view, torch.device("cuda", 0))
+        warm = sorted(r[1] for r in runs[1:])
+        say("phase10", tsqx_nblk=nblk, slot_recs=view.slot_recs,
+            groups=view.n_groups, tsqx_bytes=len(packed),
+            plane_bytes=plane_bytes, lit_rows=view.lit_rows,
+            rec_rows=view.rec_rows, exact=True,
+            decode_MBps=f"{mb / warm[1] * 1e3:.1f}",
+            e2e_ms="/".join(f"{r[1]:.1f}" for r in runs[1:]),
+            cold_ms=f"{runs[0][1]:.1f}",
+            host_cores="/".join(f"{r[2]:.2f}" for r in runs[1:]),
+            stage_ms=f"{stage_ms:.1f}", upload_ms=f"{up_ms:.1f}",
+            kernel_ms=f"{kernel_ms:.2f}", download_ms=f"{down_ms:.1f}",
+            kernel_only_MBps=f"{mb / kernel_ms * 1e3:.1f}",
+            pack_ms=f"{pack_ms:.0f}", pack_cores=f"{pack_cores:.2f}")
+    return packs
+
+
+def _tsqx_plain_args(packs) -> list:
+    """Group 0's planes of each pack, for ``_plain_tsqx_group``."""
+    from turbosqueeze_tpu_torch import tsqx
+
+    args = []
+    for nblk, packed in packs.items():
+        v = tsqx.TsqxView(packed)
+        args.append(((v.lit_words[:nblk].copy(), v.gang_words[:1].copy(),
+                      v.gmeta[:1].copy()), nblk, v.slot_recs))
+    return args
+
+
+def _tsqx_words(errs, data, packs, plain) -> None:
+    """Each pack through ``decode_to_words``, batch by batch, every block
+    against the input; group 0's words against the plain version's."""
+    from turbosqueeze_tpu_torch import tsqx
+
+    for (nblk, packed), (ref, plain_ms) in zip(packs.items(), plain):
+        view = tsqx.TsqxView(packed)
+        for lo in range(0, view.n_groups, tsqx.BATCH_GROUPS):
+            words, sizes = tsqx.decode_to_words(
+                view, groups=slice(lo, lo + tsqx.BATCH_GROUPS))
+            check(words.device.type == "cuda", "decode_to_words left the card")
+            host = words.cpu()
+            for b, size in enumerate(sizes):
+                o = (lo * nblk + b) * 4 * MiB
+                check(_bytes_of(host, b, 0, size) == data[o:o + size],
+                      f"tsqx nblk {nblk}: decode_to_words block {b}")
+            if lo == 0:
+                ref = torch.from_numpy(ref)
+                check(torch.equal(host[:nblk], ref),
+                      f"tsqx nblk {nblk} group 0: kernel != plain words")
+                for b in range(nblk):
+                    _compare(errs, "decode_gang",
+                             _bytes_of(host, b, 0, sizes[b]),
+                             _bytes_of(ref, b, 0, sizes[b]),
+                             data[b * 4 * MiB:b * 4 * MiB + sizes[b]],
+                             f"tsqx nblk {nblk} group 0 block {b}")
+            del words, host
+        say("phase10", tsqx_nblk=nblk, decode_to_words="exact",
+            group0_plain_ms=f"{plain_ms:.1f}", kernel_equals_plain=True)
+
+
+def _cli_runs(data, tmp: Path) -> None:
+    """The CLI as a user runs it, one process a verb, on 64 MiB: compress
+    at level 1, pack, decode both containers, info, verify."""
+    from turbosqueeze_tpu_torch.runtime import native
+
+    part = data[:64 * MiB]
+    src = tmp / "in.bin"
+    src.write_bytes(part)
+    cli = [sys.executable, "-m", "turbosqueeze_tpu_torch.cli"]
+    verbs = (("c", "--level", "1", src, tmp / "a.tsq"),
+             ("x", tmp / "a.tsq", tmp / "a.tsqx"),
+             ("d", tmp / "a.tsq", tmp / "d.bin"),
+             ("d", tmp / "a.tsqx", tmp / "x.bin"),
+             ("info", tmp / "a.tsq"), ("verify", src, tmp / "a.tsq"))
+    for verb in verbs:
+        t0 = time.perf_counter()
+        r = subprocess.run(cli + [str(a) for a in verb], cwd=REPO,
+                           capture_output=True, text=True, timeout=300)
+        check(r.returncode == 0,
+              f"cli {verb[0]}: rc {r.returncode}\n{r.stderr[-2000:]}")
+        say("phase10", cli=verb[0], s=f"{time.perf_counter() - t0:.1f}",
+            out=json.dumps(r.stdout.strip().splitlines()[-1]))
+    check((tmp / "a.tsq").read_bytes() == native.compress(part, level=1),
+          "cli c: container != native.compress")
+    for name in ("d.bin", "x.bin"):
+        check((tmp / name).read_bytes() == part, f"cli d: {name} != input")
+
+
+def _file_runs(counts, data, stream, mb, out: Path) -> None:
+    """``decompress_to_file`` through every route of its set, each file
+    against the input; ``gang`` (the default) timed, a cold run and
+    three warm ones."""
+    from turbosqueeze_tpu_torch.parallel import pipeline
+
+    for impl in pipeline._FILE_IMPLS:
+        runs = []
+        for _ in range(4 if impl == "gang" else 1):
+            out.unlink(missing_ok=True)
+            r = _cpu_wall(lambda: _main_path(
+                counts, lambda: pipeline.decompress_to_file(
+                    stream, out, impl=impl)))
+            check(r[0] == len(data), f"decompress_to_file {impl}: size")
+            check(out.read_bytes() == data,
+                  f"decompress_to_file {impl}: file != input")
+            runs.append(r)
+        warm = sorted(r[1] for r in runs[1:] or runs)
+        say("phase10", decompress_to_file=impl, level=1, exact=True,
+            MBps=f"{mb / warm[len(warm) // 2] * 1e3:.1f}",
+            wall_ms="/".join(f"{r[1]:.1f}" for r in runs),
+            host_cores="/".join(f"{r[2]:.2f}" for r in runs))
+    out.unlink()
+
+
+def _job_runs(counts, data, mb) -> None:
+    """Eight compress jobs at once on the card (levels 0 and 1), then
+    eight decompress jobs, each against the native core and the input."""
+    from turbosqueeze_tpu_torch.runtime import native
+    from turbosqueeze_tpu_torch.runtime.jobs import JobEngine
+
+    parts = [data[i * 32 * MiB:(i + 1) * 32 * MiB] for i in range(8)]
+    with JobEngine(n_workers=8) as eng:
+        t0 = time.perf_counter()
+        got = _main_path(counts, lambda: [j.result(600) for j in [
+            eng.submit_compress(x, level=i % 2) for i, x in enumerate(parts)]])
+        comp_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = _main_path(counts, lambda: [j.result(600) for j in [
+            eng.submit_decompress(s) for s in got]])
+        dec_s = time.perf_counter() - t0
+    for i, (x, s, y) in enumerate(zip(parts, got, back)):
+        check(s == native.compress(x, level=i % 2),
+              f"job {i}: container != native.compress")
+        check(y == x, f"job {i}: decompress != input")
+    say("phase10", jobs=8, job_mb=f"{len(parts[0]) / 1e6:.1f}", exact=True,
+        compress_MBps=f"{mb / comp_s:.1f}", decompress_MBps=f"{mb / dec_s:.1f}")
+
+
+def phase10(errs, counts, data, streams):
+    """The serving profile and the entry points around the API, on phase
+    3's input: TSQX at nblk 1, 4 and 8 (timed first, with no other work
+    on the host); then, while workers run the gang kernel's plain version
+    on group 0 of each pack, ``decode_to_words`` on every block and the
+    CLI in subprocesses; then ``decompress_to_file`` through every route
+    of its set and the job engine with eight jobs at once."""
+    import tempfile
+
+    mb = len(data) / 1e6
+    packs = _tsqx_timed(counts, data, streams[1], mb)
+    with tempfile.TemporaryDirectory() as tmp:
+        with _plain_pool(3) as pool:
+            plain = pool.map_async(_plain_tsqx_group, _tsqx_plain_args(packs))
+            _cli_runs(data, Path(tmp))
+            plain = plain.get()
+        _tsqx_words(errs, data, packs, plain)
+        del packs
+        _file_runs(counts, data, streams[1], mb, Path(tmp) / "out")
+    _job_runs(counts, data, mb)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
@@ -2243,6 +2502,7 @@ def main() -> int:
     phase7(errs, counts, timing, data, streams)
     phase8(errs, counts, timing, data, streams)
     phase9(errs, counts, timing, data)
+    phase10(errs, counts, data, streams)
     check(all(counts.values()),
           f"a kernel of the main path never launched: {counts}")
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]

@@ -802,3 +802,69 @@ def test_emitter_routes_match_native(native, emit_impl):
         else:
             assert PEF.launches == 1
     assert tsq.decompress(got, backend="cuda", dictionary=d) == data
+
+
+# --- TSQX, decompress_to_file, the CLI and the job engine ---------------------
+
+_TSQX_DATA = (lambda: synthetic_text(200_000, seed=131) + bytes(4 << 20)
+              + synthetic_binary(90_000, seed=132))
+
+
+@pytest.mark.parametrize("nblk", [1, 4, 8])
+def test_tsqx_decodes_on_the_card(native, nblk):
+    from turbosqueeze_tpu_torch import tsqx
+    from turbosqueeze_tpu_torch.runtime import api
+
+    data = _TSQX_DATA()
+    packed = tsqx.pack(native.compress(data, True, level=1), nblk=nblk)
+    before = PG.launches
+    assert tsqx.decompress(packed) == data
+    assert api.decompress(packed) == data
+    assert PG.launches >= before + 2
+    view = tsqx.TsqxView(packed)
+    words, sizes = tsqx.decode_to_words(view, groups=slice(0, 1))
+    assert words.device.type == "cuda" and len(sizes) == nblk
+    ref = PG._decode_gang_plain(
+        *(torch.from_numpy(a.copy()) for a in (
+            view.lit_words[:nblk], view.gang_words[:1], view.gmeta[:1])),
+        nblk=nblk, out_rows=PT.OUT_ROWS, max_win=PB.MAX_WIN,
+        slot_recs=view.slot_recs)
+    assert torch.equal(words.cpu(), ref)
+
+
+@pytest.mark.parametrize("impl", pipeline._FILE_IMPLS)
+def test_decompress_to_file_on_the_card(native, impl, tmp_path):
+    data = _TSQX_DATA()
+    d = synthetic_text(9_000, seed=133)
+    out = tmp_path / "out"
+    for stream, dictionary in ((native.compress(data, True, level=1), None),
+                               (native.compress_dict(data, d, True), d)):
+        assert pipeline.decompress_to_file(
+            stream, out, impl=impl, window_blocks=1,
+            dictionary=dictionary) == len(data)
+        assert out.read_bytes() == data
+
+
+def test_cli_and_jobs_on_the_card(native, tmp_path):
+    from turbosqueeze_tpu_torch.cli import main
+    from turbosqueeze_tpu_torch.runtime.jobs import JobEngine
+
+    data = _TSQX_DATA()
+    src, tsq, tsqx_f = (tmp_path / "in", tmp_path / "a.tsq",
+                        tmp_path / "a.tsqx")
+    src.write_bytes(data)
+    assert main(["c", "--level", "1", str(src), str(tsq)]) == 0
+    assert tsq.read_bytes() == native.compress(data, True, level=1)
+    assert main(["x", str(tsq), str(tsqx_f)]) == 0
+    for f in (tsq, tsqx_f):
+        assert main(["d", str(f), str(tmp_path / "out")]) == 0
+        assert (tmp_path / "out").read_bytes() == data
+    assert main(["verify", str(src), str(tsq)]) == 0
+    parts = [data[i::4] for i in range(4)]
+    with JobEngine(n_workers=4) as eng:
+        streams = [j.result(300) for j in [eng.submit_compress(
+            x, level=i % 2) for i, x in enumerate(parts)]]
+        backs = [j.result(300) for j in [eng.submit_decompress(s)
+                                         for s in streams]]
+    for i, (x, s, y) in enumerate(zip(parts, streams, backs)):
+        assert s == native.compress(x, level=i % 2) and y == x

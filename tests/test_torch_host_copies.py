@@ -258,6 +258,38 @@ def test_native_decode_prep_equal(cores):
         port.bulk_mergen([preps[0][1]] * 5, [preps[0][2]] * 5)
 
 
+def test_native_file_pipeline_equal(cores, tmp_path):
+    """``compress_file`` and ``decompress_file`` write the JAX binding's
+    files, with the same per-block progress, on several blocks."""
+    port, ref = cores
+    src = tmp_path / "src"
+    src.write_bytes(bytes(2 * (4 * MiB)) + _DATA)
+    files, ticks = {}, {}
+    for name, mod in (("port", port), ("ref", ref)):
+        tsq, out = tmp_path / f"{name}.tsq", tmp_path / f"{name}.out"
+        seen = []
+        n = mod.compress_file(str(src), str(tsq), True, 1,
+                              progress=lambda *a: seen.append(a))
+        assert n == tsq.stat().st_size
+        assert mod.decompress_file(str(tsq), str(out),
+                                   progress=lambda *a: seen.append(a)) == (
+            src.stat().st_size)
+        assert out.read_bytes() == src.read_bytes()
+        files[name], ticks[name] = tsq.read_bytes(), sorted(seen)
+    assert files["port"] == files["ref"] == port.compress(
+        src.read_bytes(), True, level=1)
+    assert ticks["port"] == ticks["ref"] and ticks["port"][-1] == (3, 3)
+    # the port's binding takes path objects too
+    assert port.decompress_file(tmp_path / "port.tsq", tmp_path / "again") \
+        == src.stat().st_size
+    with pytest.raises(PF.FormatError):
+        port.decompress_file(str(src), str(tmp_path / "bad"))
+    with pytest.raises(RuntimeError):
+        port.compress_file(str(tmp_path / "missing"), str(tmp_path / "x"))
+    assert port.streaming_ok("native")
+    assert not any(port.streaming_ok(b) for b in ("auto", "cuda", "oracle"))
+
+
 def test_native_errors(cores):
     port, _ = cores
     stream = port.compress(_DATA, True)

@@ -61,6 +61,10 @@ import turbosqueeze_tpu_torch.reference_codec
 import turbosqueeze_tpu_torch.runtime.api
 import turbosqueeze_tpu_torch.runtime.native
 import turbosqueeze_tpu_torch.utils.corpus as corpus
+import turbosqueeze_tpu_torch.cli as cli
+import turbosqueeze_tpu_torch.runtime.jobs as jobs
+import turbosqueeze_tpu_torch.tsqx as tsqx
+import turbosqueeze_tpu_torch.utils.profiling as profiling
 assert "torch" in sys.modules
 data = corpus.synthetic_text(60_000, seed=3) + bytes(5_000)
 d = corpus.synthetic_text(9_000, seed=4)
@@ -79,6 +83,21 @@ for impl in ("gang", "bulk", "bulk2", "bulkn", "stream", "pallas", "xla"):
 stream = tsq.compress(data, backend="native", dictionary=d)
 assert tsq.decompress(stream, backend="cuda", device="cpu",
                       dictionary=d) == data
+assert tsq.decompress(tsqx.pack(tsq.compress(data, backend="native"), nblk=2),
+                      device="cpu") == data
+import os, tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    out = os.path.join(tmp, "out")
+    pipeline.decompress_to_file(stream, out, device="cpu", dictionary=d)
+    assert open(out, "rb").read() == data
+    src = os.path.join(tmp, "src")
+    open(src, "wb").write(data)
+    import contextlib, io
+    with contextlib.redirect_stdout(io.StringIO()):  # the verbs' reports
+        assert cli.main(["--device", "cpu", "c", src, out]) == 0
+        assert cli.main(["--device", "cpu", "verify", src, out]) == 0
+with jobs.JobEngine(device="cpu") as eng, profiling.device_trace(None):
+    assert eng.decompress(eng.compress(data)) == data
 loaded = [m for m in sys.modules if m.split(".")[0] in _BLOCKED]
 assert not loaded, loaded
 print("ok")
@@ -88,7 +107,8 @@ print("ok")
 def test_import_never_loads_jax():
     """Neither JAX nor the JAX package is loaded by the port: importing
     every module, compressing and decoding on the CPU through the pipeline
-    (every route) and the native and oracle backends."""
+    (every route), the native and oracle backends, TSQX,
+    ``decompress_to_file``, the CLI and the job engine."""
     r = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr

@@ -136,7 +136,8 @@ def test_api_host_backends_roundtrip(backend):
 
 def test_api_rejects_unported_routes(native):
     stream = native.compress(b"hello world " * 50, True)
-    with pytest.raises(NotImplementedError):
+    # TSQX is routed now: a malformed container is a format error
+    with pytest.raises(FormatError, match="TSQX version 0"):
         tsq.decompress(b"TSQX" + bytes(60), backend="cuda")
     with pytest.raises(NotImplementedError):
         tsq.compress(b"data", backend="oracle", dictionary=b"dict")

@@ -3,14 +3,21 @@
 The kernels in ``csrc/`` export a plain C interface and include no
 PyTorch header, so ``nvcc`` builds them in seconds and ``ctypes`` loads
 the result. The library is built at first use, from the sources beside
-this module only, and rebuilt whenever a source is newer than it.
+this module only, and rebuilt whenever a source is newer than it. The
+build holds an exclusive ``fcntl`` lock on ``build.lock`` beside the
+library, so processes that start at once build it once, and publishes it
+with ``os.replace``; ``library()`` checks, builds and loads under a
+``threading.Lock``, so threads that make the first kernel call at once
+build and load it once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -25,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
+_load_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -41,14 +49,22 @@ def build(csrc: Path = CSRC, lib_path: Path = LIB_PATH,
     """Compile the library from the sources in ``csrc`` (with the extra
     nvcc ``flags``) if it is missing or older than a source. Returns the
     compiler's report (registers, spills per kernel), or "" when the
-    library was already current."""
+    library was already current. Holds an exclusive lock on
+    ``build.lock`` in the library's directory while it checks and
+    builds."""
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    with open(lib_path.parent / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        return _build_locked(csrc, lib_path, flags)
+
+
+def _build_locked(csrc: Path, lib_path: Path, flags: tuple) -> str:
     srcs = [csrc / s for s in SOURCES]
     # another checkout (an A/B run's) may not have every header
     newest = max(f.stat().st_mtime for f in srcs + [csrc / h for h in HEADERS]
                  if f.exists())
     if lib_path.exists() and lib_path.stat().st_mtime >= newest:
         return ""
-    lib_path.parent.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
     objs = [lib_path.with_name(f"{s.stem}.{tag}.o") for s in srcs]
     # one nvcc per source, all at once: the build time is the slowest
@@ -76,12 +92,17 @@ def build(csrc: Path = CSRC, lib_path: Path = LIB_PATH,
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
+    """The loaded kernel library, built first if needed; safe from any
+    thread."""
     global _lib
-    if _lib is None:
-        build()
-        _lib = load(LIB_PATH)
-    return _lib
+    lib = _lib
+    if lib is not None:
+        return lib
+    with _load_lock:
+        if _lib is None:
+            build()
+            _lib = load(LIB_PATH)
+        return _lib
 
 
 def load(lib_path: Path) -> ctypes.CDLL:

@@ -1,6 +1,6 @@
 """Device decode and encode of a ``.tsq`` container: the port of
 ``turbosqueeze_tpu/parallel/pipeline.py::decompress``,
-``::decompress_to_words`` and ``::compress``.
+``::decompress_to_file``, ``::decompress_to_words`` and ``::compress``.
 
 Blocks stream through the device in windows.
 
@@ -28,7 +28,8 @@ A preset dictionary rides every route in the dict-extended output space
 to a third 2 MiB gang window), the stream kernel at the head of the output,
 and the tokenizer's routes as synthetic literal tokens
 (``block.tokenize_with_dict``); each block is sliced at ``dict_len``.
-Blocks are assembled in order on the host and the total is checked against
+Blocks are assembled in order on the host (``decompress_to_file`` writes
+each at its fixed 4 MiB offset instead) and the total is checked against
 the container's declared size. Kernel launches and the device-to-host copy
 into pinned memory are asynchronous, so window k+1's host work runs while
 window k decodes; each window is waited for only when it is drained.
@@ -48,6 +49,7 @@ emitter flags as overflowed is emitted on the host from its candidates.
 
 from __future__ import annotations
 
+import ctypes
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 from typing import List
@@ -118,12 +120,43 @@ class _Pending:
         else:
             self.host, self.done = words, None
 
-    def blocks(self) -> List[bytes]:
+    def views(self) -> List[torch.Tensor]:
+        """Each block's bytes, as uint8 views of the host copy."""
         if self.done is not None:
             self.done.synchronize()
         flat = self.host.view(torch.uint8).reshape(self.host.shape[0], -1)
-        return [flat[b, self.base:self.base + n].numpy().tobytes()
+        return [flat[b, self.base:self.base + n]
                 for b, n in enumerate(self.sizes)]
+
+
+
+def _assemble(pendings, total_size: int, n_blocks: int = 0,
+              progress=None) -> bytes:
+    """Drain each ``_Pending`` in turn into one fresh bytes object of
+    ``total_size``, each block copied once. progress: called with
+    ``(blocks_done, n_blocks)`` once per block, in block order. Raises
+    ``FormatError`` unless the blocks' sizes sum to ``total_size``."""
+    out, ptr = native._alloc_exact_bytes(total_size)
+    # the fresh bytes object is written here before anything else sees it
+    dst = (np.ctypeslib.as_array((ctypes.c_uint8 * total_size)
+                                 .from_address(ptr))
+           if total_size else np.empty(0, np.uint8))
+    o = done = 0
+    for p in pendings:
+        for block in p.views():
+            n = len(block)
+            if o + n > total_size:
+                raise FormatError(f"decoded more than the {total_size} "
+                                  f"bytes the container declares")
+            dst[o:o + n] = block.numpy()
+            o += n
+            done += 1
+            if progress is not None:
+                progress(done, n_blocks)
+    if o != total_size:
+        raise FormatError(
+            f"decoded {o} bytes, container declares {total_size}")
+    return out
 
 
 def _upload(arrays, device) -> list:
@@ -271,6 +304,10 @@ _WINDOW_ROUTES = {"gang": _gang_window, "stream": _stream_window,
                      for impl in ("bulk", "bulk2", "bulkn")}}
 
 
+# the routes decompress_to_file takes: the JAX package's set, all but pallas
+_FILE_IMPLS = tuple(r for r in _WINDOW_ROUTES if r != "pallas")
+
+
 def _check_impl(impl: str, routes) -> None:
     if impl not in routes:
         raise ValueError(f"unknown impl: {impl!r}")
@@ -308,39 +345,77 @@ def decompress(stream: bytes, device=None, impl: str = "auto",
     if impl == "auto":
         impl = "gang"
     _check_impl(impl, _WINDOW_ROUTES)
+    hdr, table = scan_block_table(stream)
+    windows = _decoded_windows(stream, table, device, impl, window_blocks,
+                               dictionary)
+    return _assemble((p for _, p in windows), hdr.total_size, len(table),
+                     progress)
+
+
+def _decoded_windows(stream, table, device, impl: str, window_blocks: int,
+                     dictionary):
+    """Decode the container's windows through the route ``impl`` (the
+    stream kernel for a window the resolver declines). Yields (first
+    block, _Pending) per window, in order; window k is yielded only after
+    window k + 1 has been launched, so draining k overlaps k + 1. The
+    dictionary and the device are checked here, at the call, before the
+    caller writes anything."""
     dictionary = _check_dictionary(dictionary)
     dev = mesh_mod.block_devices(device)[0]
     if window_blocks <= 0:
         window_blocks = XLA_WINDOW_BLOCKS if impl == "xla" else WINDOW_BLOCKS
 
+    def windows():
+        pending = None
+        with ThreadPoolExecutor() as pool:  # the native core releases the GIL
+            for lo in range(0, len(table), window_blocks):
+                win = table[lo:lo + window_blocks]
+                r = _WINDOW_ROUTES[impl](stream, win, dev, pool, dictionary)
+                if r is None:  # the resolver declined a block
+                    r = _stream_window(stream, win, dev, pool, dictionary)
+                cur = lo, _Pending(r[0], _declared_sizes(stream, win), r[1])
+                if pending is not None:
+                    yield pending
+                pending = cur
+        if pending is not None:
+            yield pending
+
+    return windows()
+
+
+def decompress_to_file(stream: bytes, out_path, device=None,
+                       impl: str = "auto", window_blocks: int = 0,
+                       dictionary: bytes = None) -> int:
+    """Decode a ``.tsq`` container on ``device`` straight into the file
+    ``out_path``; returns the decoded size.
+
+    Every block decodes to at most 4 MiB, so block b's bytes go at
+    ``b << 22`` of the file, which is first truncated to the container's
+    size: each window's blocks are written as it drains, while the next
+    window decodes, and no output is assembled in memory. ``impl`` is one
+    of the JAX package's set (``"stream"``, ``"xla"``, ``"bulk"``,
+    ``"bulk2"``, ``"bulkn"``, ``"gang"``; ``"auto"`` = ``"gang"``), run as
+    in ``decompress``; ``device``, ``window_blocks`` and ``dictionary`` as
+    there. One process writes the whole file.
+    """
+    if impl == "auto":
+        impl = "gang"
+    _check_impl(impl, _FILE_IMPLS)
     hdr, table = scan_block_table(stream)
-    wins = [table[lo:lo + window_blocks]
-            for lo in range(0, len(table), window_blocks)]
-    parts: List[bytes] = []
-
-    def drain(p: _Pending) -> None:
-        for part in p.blocks():
-            parts.append(part)
-            if progress is not None:
-                progress(len(parts), len(table))
-
-    pending = None
-    with ThreadPoolExecutor() as pool:  # the native core releases the GIL
-        for win in wins:
-            r = _WINDOW_ROUTES[impl](stream, win, dev, pool, dictionary)
-            if r is None:  # the resolver declined a block
-                r = _stream_window(stream, win, dev, pool, dictionary)
-            cur = _Pending(r[0], _declared_sizes(stream, win), r[1])
-            if pending is not None:  # drain window k after launching k+1
-                drain(pending)
-            pending = cur
-    if pending is not None:
-        drain(pending)
-    out = b"".join(parts)
-    if len(out) != hdr.total_size:
+    windows = _decoded_windows(stream, table, device, impl, window_blocks,
+                               dictionary)
+    written = 0
+    with open(out_path, "wb") as f:
+        f.truncate(hdr.total_size)
+        for lo, p in windows:
+            for b, part in enumerate(p.views()):
+                f.seek((lo + b) << 22)
+                f.write(part.numpy())
+                written += len(part)
+    if written != hdr.total_size:
         raise FormatError(
-            f"decoded {len(out)} bytes, container declares {hdr.total_size}")
-    return out
+            f"decoded {written} bytes, container declares {hdr.total_size}")
+    return written
 
 
 def decompress_to_words(stream: bytes, device=None, impl: str = "pallas",

@@ -12,12 +12,14 @@ Backends:
   * ``oracle`` — the pure-Python exact codec (``reference_codec.py``),
     only when asked for by name.
 
-TSQX containers are not ported yet.
+``decompress`` also takes TSQX serving containers (``tsqx.py``), which
+decode on the card only (``device="cpu"`` runs the gang kernel's plain
+version): a host backend or a dictionary raises for them.
 """
 
 from __future__ import annotations
 
-from .. import reference_codec
+from .. import reference_codec, tsqx
 from ..format import FormatError
 from ..parallel import pipeline
 from . import native
@@ -73,12 +75,18 @@ def decompress(stream: bytes, backend: str = "auto",
     host codec. ``dictionary`` is the preset dictionary it was compressed
     with, if any. ``device`` picks the card (default: the first CUDA
     device; ``"cpu"`` runs the kernels' plain versions). ``progress`` is
-    called with ``(blocks_done, n_blocks)`` per block."""
-    if len(stream) >= 4 and stream[:4] == b"TSQX":
-        raise NotImplementedError("TSQX containers are not ported yet")
+    called with ``(blocks_done, n_blocks)`` per block (not for TSQX)."""
+    b = _resolve(backend)
+    if tsqx.is_tsqx(stream):
+        if dictionary is not None:
+            raise FormatError("TSQX containers embed their context; "
+                              "dictionary does not apply")
+        if b != "cuda":
+            raise ValueError(f"TSQX containers decode on the card only, "
+                             f"not on backend {backend!r}")
+        return tsqx.decompress(stream, device=device)
     if len(stream) < 16 or stream[:4] != b"TSQ1":
         raise FormatError("not a TSQ1 stream")
-    b = _resolve(backend)
     if b == "cuda":
         return pipeline.decompress(stream, device=device,
                                    dictionary=dictionary, progress=progress)

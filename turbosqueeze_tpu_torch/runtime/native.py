@@ -12,7 +12,8 @@ under a ``threading.Lock``, so a first call from a pool thread is safe. A
 failed build raises with the compiler's output.
 
 It binds only what the port calls: the host codec (``compress``,
-``decompress``, their dictionary forms, with ``progress=``), the emission
+``decompress``, their dictionary forms, with ``progress=``), the file
+pipeline (``compress_file``, ``decompress_file``), the emission
 helpers of device compress (``build_candidates``,
 ``encode_block_candidates``, ``encode_block_dict``), the tokenizer, and the
 bulk resolver with its mergers (``bulk_prep``, ``bulk_merge2``,
@@ -123,6 +124,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "tsq_decompress_mt_cb": (I64, [P, U64, P, U64, I, PROGRESS_CFUNC, P]),
         "tsq_decompress_mt_dict": (I64, [P, U64, P, U32, P, U64, I,
                                          PROGRESS_CFUNC, P]),
+        "tsq_compress_file_cb": (I64, [S, S, I, U32, I, PROGRESS_CFUNC, P]),
+        "tsq_decompress_file_cb": (I64, [S, S, I, PROGRESS_CFUNC, P]),
         "tsq_build_candidates": (None, [S, U32, P]),
         "tsq_encode_block_candidates": (I64, [S, U32, P, P, I]),
         "tsq_encode_block_lazy": (I64, [S, U32, P, P, I, U32]),
@@ -156,6 +159,15 @@ def _load() -> ctypes.CDLL:
 def available() -> bool:
     """True once the core is built and loaded; a failed build raises."""
     return _load() is not None
+
+
+def streaming_ok(backend: str) -> bool:
+    """Whether file jobs of ``backend`` stream through the core's file
+    pipeline (``compress_file``, ``decompress_file``). Only
+    ``"native"`` does: the port's ``"auto"`` means the card, so unlike
+    the JAX package's ``streaming_ok`` it never picks the host core for
+    ``"auto"``. A failed build raises."""
+    return backend == "native" and available()
 
 
 # --- buffers and progress ----------------------------------------------------
@@ -301,6 +313,33 @@ def decompress_dict(stream: bytes, dictionary: bytes, n_threads: int = 0,
     if n != size:
         raise FormatError(f"native dict decompress short ({n} != {size})")
     return out
+
+
+def compress_file(in_path, out_path, ext: bool = True, level: int = 0,
+                  n_threads: int = 0, progress=None) -> int:
+    """Compress the file ``in_path`` into a ``.tsq`` container at
+    ``out_path``, streaming windows of blocks through the core (bounded
+    memory on any input size). Returns the container's size."""
+    lib = _load()
+    cb, _keep = _wrap_progress(progress)
+    n = lib.tsq_compress_file_cb(os.fsencode(in_path), os.fsencode(out_path),
+                                 1 if ext else 0, level, n_threads, cb, None)
+    if n < 0:
+        raise RuntimeError(f"native file compress failed (code {n})")
+    return n
+
+
+def decompress_file(in_path, out_path, n_threads: int = 0,
+                    progress=None) -> int:
+    """Decompress the ``.tsq`` file ``in_path`` into ``out_path``, streaming
+    windows of blocks through the core. Returns the decoded size."""
+    lib = _load()
+    cb, _keep = _wrap_progress(progress)
+    n = lib.tsq_decompress_file_cb(os.fsencode(in_path),
+                                   os.fsencode(out_path), n_threads, cb, None)
+    if n < 0:
+        raise FormatError(f"native file decompress failed (code {n})")
+    return n
 
 
 # --- emission helpers of device compress -------------------------------------
