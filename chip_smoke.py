@@ -10,7 +10,8 @@ decode (``pipeline.decompress(stream, impl="pallas")``,
 entry points around them: the TSQX serving profile (``tsqx.pack``,
 ``decompress`` and ``decode_to_words``), ``pipeline.decompress_to_file``,
 the CLI (``python -m turbosqueeze_tpu_torch.cli``) and the job engine
-(``runtime/jobs.py``). They run
+(``runtime/jobs.py``), and every one of those spread over several shards
+of a window and over two processes. They run
 five hand-written CUDA kernels: the gang-stream decoder, the raw-payload
 stream decoder, the token emitter (two matchers: the upstream's hash table
 at level 0, phase-A candidates at level 1), the token-chunk decoder and the
@@ -91,7 +92,18 @@ Phases:
      plain version's; the level-1 container through
      ``decompress_to_file`` with every route of its set (``gang`` timed);
      eight compress jobs at once through ``JobEngine`` (levels 0 and 1,
-     byte-identical to ``native.compress``) and eight decompress jobs.
+     byte-identical to ``native.compress``) and eight decompress jobs;
+ 11. one call's blocks over several shards: (a) every window split into
+     two shards on ``cuda:0`` (``device=["cuda:0", "cuda:0"]``), phase 3's
+     level-1 container through ``gang``, ``pallas`` and ``bulk2``,
+     ``compress(level=1)`` and TSQX at nblk 4, each bit-exact and timed in
+     turns beside one shard; (b) every CUDA device, where the machine has
+     more than one (else one line says so); (c) two processes on the one
+     card (``turbosqueeze_tpu_torch.parallel._worker``, gloo on
+     localhost): decode (``gang``, ``pallas``), ``decompress_to_file``
+     (``gang``), ``compress(level=1)`` and TSQX at nblk 4 on the same
+     input, checked by the workers, each rank's wall and host cores, the
+     host-0 hop's MB/s, and the gang decode again in windows of 32 blocks.
 
 Every kernel is held against its plain version at zero tolerance over the
 bytes the format defines (each block's first ``size`` bytes, or each
@@ -2460,6 +2472,139 @@ def phase10(errs, counts, data, streams):
     _job_runs(counts, data, mb)
 
 
+_CARD = "cuda:0"  # the card phase 11 spreads its shards over
+_WORKER = "turbosqueeze_tpu_torch.parallel._worker"
+
+
+def _shards_timed(counts, name, kernel, want, mb, call) -> None:
+    """``call(device)`` as a main path with every window on one shard
+    (``_CARD``) and split into two shards on it, in turns (one, two, two,
+    one): each result equal to ``want``, each run launching ``kernel``;
+    wall ms, MB/s and host cores of both."""
+    runs = {1: [], 2: []}
+    for n in (1, 2, 2, 1):
+        before = counts[kernel]
+        out, ms, cores = _cpu_wall(lambda: _main_path(
+            counts, lambda: call(_CARD if n == 1 else [_CARD] * n)))
+        check(out == want, f"phase11 {name}, {n} shard(s): wrong bytes")
+        check(counts[kernel] > before,
+              f"phase11 {name}, {n} shard(s): {kernel} never launched")
+        runs[n].append((ms, cores))
+    say("phase11", spread=name, card=_CARD, exact=True,
+        **{f"shards{n}_{k}": v for n, r in runs.items() for k, v in (
+            ("MBps", f"{mb / statistics.mean(m for m, _ in r) * 1e3:.1f}"),
+            ("wall_ms", "/".join(f"{m:.1f}" for m, _ in r)),
+            ("host_cores", "/".join(f"{c:.2f}" for _, c in r)))})
+
+
+def _worker_pair(tmp: str, args: list) -> dict:
+    """Two ranks of the port's worker on ``_CARD`` over the inputs in
+    ``tmp``, joined by gloo on localhost, with the worker's ``args``:
+    {op: {(rank, rep): record}}. A rank that fails or outlives its
+    timeout fails the phase, and both are killed."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{sock.getsockname()[1]}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", _WORKER, coordinator, "2", str(rank), tmp,
+         "--device", _CARD, *args], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240))
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure("phase11: a worker outlived its 240 s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, (_, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0,
+              f"phase11 rank {rank}: rc {p.returncode}\n{err[-3000:]}")
+    recs = collections.defaultdict(dict)
+    for so, _ in outs:
+        for line in so.splitlines():
+            if line.startswith("{"):
+                r = json.loads(line)
+                check(r["ok"], f"phase11 rank {r['rank']}: {r['op']} failed")
+                recs[r["op"]][r["rank"], r["rep"]] = r
+    return recs
+
+
+def _two_processes(data, stream, mb) -> None:
+    """Two processes on ``_CARD``: decode (gang, pallas),
+    ``decompress_to_file`` (gang), ``compress(level=1)`` and TSQX at nblk 4
+    on phase 3's input, a cold run and a warm one each, checked by the
+    workers (rank 0 gets the input, rank 1 ``b""``; both ranks
+    ``native.compress``'s container), and the host-0 hop alone; then the
+    gang decode again in windows of 32 blocks, 16 a rank, so that each
+    rank's next window is resolved while its last decodes. Each rank's
+    wall and host cores per op."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / "input.bin").write_bytes(data)
+        (Path(tmp) / "input.tsq").write_bytes(stream)
+        runs = [(0, _worker_pair(tmp, [
+            "--reps", "2", "--ops", "decompress:gang,decompress:pallas,"
+            "file:gang,compress:1,tsqx:4,hop"])),
+            (32, _worker_pair(tmp, ["--reps", "2", "--window", "32",
+                                    "--ops", "decompress:gang"]))]
+    for window, recs in runs:
+        for op, rr in recs.items():
+            extra = ({"hop_MBps": f"{rr[0, 1]['MBps']:.1f}"} if op == "hop"
+                     else {"MBps": f"{mb / rr[0, 1]['wall_ms'] * 1e3:.1f}"})
+            say("phase11", processes=2, card=_CARD, op=op,
+                window_blocks=window or "default", exact=True, **extra,
+                **{f"rank{k}_{f}": "/".join(
+                    f"{rr[k, rep][f]}" for rep in range(2))
+                   for k in range(2) for f in ("wall_ms", "host_cores")})
+    say("phase11", processes=2, s=f"{time.perf_counter() - t0:.1f}")
+
+
+def phase11(counts, data, streams):
+    """One call's blocks over several shards: (a) every window split into
+    two shards on one card, phase 3's level-1 container through ``gang``,
+    ``pallas`` and ``bulk2``, ``compress(level=1)`` and TSQX at nblk 4,
+    each timed beside one shard in turns; (b) every CUDA device, where the
+    machine has more than one; (c) two processes on the one card."""
+    import turbosqueeze_tpu_torch as tsq
+    from turbosqueeze_tpu_torch import tsqx
+    from turbosqueeze_tpu_torch.parallel import pipeline
+
+    mb, stream = len(data) / 1e6, streams[1]
+    for impl, kernel in (("gang", "decode_gang"), ("pallas", "decode_tokens"),
+                         ("bulk2", "decode_bulk2")):
+        _shards_timed(counts, f"decompress {impl}", kernel, data, mb,
+                      lambda dev: pipeline.decompress(stream, device=dev,
+                                                      impl=impl))
+    _shards_timed(counts, "compress level 1", "encode_emit_cand", stream, mb,
+                  lambda dev: pipeline.compress(data, level=1, device=dev))
+    packed = tsqx.pack(stream, nblk=4)
+    _shards_timed(counts, "tsqx nblk 4", "decode_gang", data, mb,
+                  lambda dev: tsqx.decompress(packed, device=dev))
+    del packed
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        for name, call, want in (
+                ("decompress gang", lambda: tsq.decompress(stream), data),
+                ("compress level 1", lambda: tsq.compress(data, level=1),
+                 stream)):
+            out, ms, cores = _cpu_wall(lambda: _main_path(counts, call))
+            check(out == want, f"phase11 {name} over {n_cards} cards")
+            say("phase11", spread=name, cards=n_cards, exact=True,
+                MBps=f"{mb / ms * 1e3:.1f}", host_cores=f"{cores:.2f}")
+    else:
+        say("phase11", spread="every CUDA device", run=False,
+            reason=f"{n_cards} CUDA device on this machine")
+    _two_processes(data, stream, mb)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
@@ -2503,6 +2648,7 @@ def main() -> int:
     phase8(errs, counts, timing, data, streams)
     phase9(errs, counts, timing, data)
     phase10(errs, counts, data, streams)
+    phase11(counts, data, streams)
     check(all(counts.values()),
           f"a kernel of the main path never launched: {counts}")
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]

@@ -868,3 +868,25 @@ def test_cli_and_jobs_on_the_card(native, tmp_path):
                                          for s in streams]]
     for i, (x, s, y) in enumerate(zip(parts, streams, backs)):
         assert s == native.compress(x, level=i % 2) and y == x
+
+
+_TWO = ["cuda:0", "cuda:0"]  # two shards of every window on one card
+
+
+def test_two_shards_on_one_card(native):
+    """decompress (gang), compress (level 1) and TSQX with each window
+    split into two shards on cuda:0: the two blocks a shard each (TSQX at
+    nblk 4: one group, the second shard empty)."""
+    from turbosqueeze_tpu_torch import tsqx
+
+    data = _TSQX_DATA()
+    stream = native.compress(data, True, level=1)
+    before = PG.launches
+    assert pipeline.decompress(stream, device=_TWO, impl="gang",
+                               window_blocks=2) == data
+    assert PG.launches == before + 2
+    assert pipeline.compress(data, level=1, device=_TWO,
+                             window_blocks=2) == stream
+    for nblk in (1, 4):
+        assert tsqx.decompress(tsqx.pack(stream, nblk=nblk),
+                               device=_TWO) == data

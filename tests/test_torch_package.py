@@ -57,6 +57,7 @@ import turbosqueeze_tpu_torch.kernels.encode_emit
 import turbosqueeze_tpu_torch.kernels.encode_flat
 import turbosqueeze_tpu_torch.kernels.encode_xla
 import turbosqueeze_tpu_torch.parallel.pipeline as pipeline
+import turbosqueeze_tpu_torch.parallel._worker
 import turbosqueeze_tpu_torch.reference_codec
 import turbosqueeze_tpu_torch.runtime.api
 import turbosqueeze_tpu_torch.runtime.native
@@ -80,6 +81,9 @@ for emit_impl in ("bulk", "flat"):
                              emit_impl=emit_impl) == stream
 for impl in ("gang", "bulk", "bulk2", "bulkn", "stream", "pallas", "xla"):
     assert pipeline.decompress(stream, device="cpu", impl=impl) == data
+from turbosqueeze_tpu_torch.parallel.mesh import init_distributed
+init_distributed(None)  # one process: nothing to join
+assert pipeline.decompress(stream, device=["cpu", "cpu"]) == data
 stream = tsq.compress(data, backend="native", dictionary=d)
 assert tsq.decompress(stream, backend="cuda", device="cpu",
                       dictionary=d) == data
@@ -107,8 +111,8 @@ print("ok")
 def test_import_never_loads_jax():
     """Neither JAX nor the JAX package is loaded by the port: importing
     every module, compressing and decoding on the CPU through the pipeline
-    (every route), the native and oracle backends, TSQX,
-    ``decompress_to_file``, the CLI and the job engine."""
+    (every route, and over two shards), the native and oracle backends,
+    TSQX, ``decompress_to_file``, the CLI and the job engine."""
     r = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr

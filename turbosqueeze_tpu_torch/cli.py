@@ -11,8 +11,10 @@ Verbs:
     info <file.tsq> [--blocks]           container inspection
     verify <input> <file.tsq>            roundtrip check
 Options: --backend {auto,cuda,native,oracle} (``auto`` is the card),
---device (default: the first CUDA device; ``cpu`` runs the kernels' plain
-versions), --threads N (host threads of the native core and of ``x``).
+--device (default: every CUDA device, a shard of each window's blocks on
+each; ``cpu`` runs the kernels' plain versions; a comma-separated list
+such as ``cuda:0,cuda:1`` names the devices), --threads N (host threads of
+the native core and of ``x``).
 
 ``c`` and ``d`` with ``--backend native`` and no dictionary stream the
 file through the native core's windowed file pipeline; ``d`` on the card
@@ -194,8 +196,9 @@ def main(argv=None) -> int:
     p.add_argument("--backend", default="auto",
                    choices=["auto", "cuda", "native", "oracle"])
     p.add_argument("--device", default=None,
-                   help="CUDA device (default: the first); 'cpu' runs the "
-                        "kernels' plain versions")
+                   type=lambda v: v.split(",") if "," in v else v,
+                   help="devices, comma-separated (default: every CUDA "
+                        "device); 'cpu' runs the kernels' plain versions")
     p.add_argument("--threads", type=int, default=0)
     sub = p.add_subparsers(dest="verb", required=True)
 

@@ -1,34 +1,120 @@
-"""The devices a decode spreads its blocks over.
+"""The devices and processes a call spreads its blocks over.
 
 Blocks are the unit of data parallelism, as in the JAX package's 1-D
-``blocks`` mesh (``turbosqueeze_tpu/parallel/mesh.py``). The port runs in
-one process; spreading one call's blocks over several cards and several
-processes comes later.
+``blocks`` mesh (``turbosqueeze_tpu/parallel/mesh.py``): independent 4 MiB
+blocks shard over every local device of every process. A call's window of
+``n`` blocks splits into ``S`` contiguous shards, ``S`` being the local
+device count times the process count; process ``r`` owns shards
+``[r * L, (r + 1) * L)`` of them, one on each of its ``L`` devices
+(``shard_bounds``). Processes join through ``init_distributed`` over
+``torch.distributed`` on gloo: every byte that crosses a process is host
+data, as the reference's coordination service and ``process_allgather``
+carry host data, and gloo, unlike NCCL, takes two ranks on one card.
 """
 
 from __future__ import annotations
 
+from datetime import timedelta
+from typing import List, Optional, Tuple
+
 import torch
+import torch.distributed as dist
+
+# a peer that fails or never arrives raises on the others after this long,
+# where it would otherwise hang them
+DIST_TIMEOUT = timedelta(seconds=300)
 
 
-def block_devices(device=None) -> list:
-    """The devices blocks decode on.
+def _every_cuda(device) -> bool:
+    return device is None or (not isinstance(device, (list, tuple))
+                              and str(device) == "cuda")
+
+
+def _device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{dev} requested but CUDA is not available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def block_devices(device=None) -> List[torch.device]:
+    """The local devices blocks run on, one shard each.
 
     ``None`` or ``"cuda"`` lists every CUDA device and raises when there is
     none: the port never falls back to the CPU unasked. A specific device
     (``"cuda:1"``, ``"cpu"``, a ``torch.device``) is returned alone; the
-    CPU runs the kernels' plain versions.
+    CPU runs the kernels' plain versions. A sequence of devices lists them
+    in order, repeats allowed (``["cuda:0", "cuda:0"]`` is two shards on
+    one card); a sequence that mixes the CPU and CUDA raises ``ValueError``.
     """
-    if device is None or str(device) == "cuda":
+    if _every_cuda(device):
         n = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if n == 0:
             raise RuntimeError("no CUDA device: pass device='cpu' to run "
                                "the plain PyTorch decode on the host")
         return [torch.device("cuda", i) for i in range(n)]
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{dev} requested but CUDA is not available")
-    return [dev]
+    if not isinstance(device, (list, tuple)):
+        return [_device(device)]
+    if not device:
+        raise ValueError("an empty sequence of devices")
+    types = {torch.device(d).type for d in device}
+    if len(types) > 1:
+        raise ValueError(f"devices mix {sorted(types)}: a call runs all of "
+                         f"its shards on one kind of device")
+    return [_device(d) for d in device]
+
+
+def one_device(device, what: str) -> torch.device:
+    """The device of an entry point that leaves one tensor on one device
+    (``what`` names it): ``device`` as in ``block_devices``, ``None`` or
+    ``"cuda"`` meaning the first CUDA device; several devices, or a run of
+    several processes, raise ``ValueError``."""
+    if process_count() > 1:
+        raise ValueError(f"{what} leaves one tensor on one device, in one "
+                         f"process; this run has {process_count()}")
+    devs = block_devices(device)
+    if len(devs) > 1 and not _every_cuda(device):
+        raise ValueError(f"{what} leaves one tensor on one device: pass one "
+                         f"device, not {len(devs)}")
+    return devs[0]
+
+
+def init_distributed(coordinator: Optional[str] = None,
+                     num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None) -> None:
+    """Join this process to the others of a multi-process run.
+
+    ``coordinator`` is rank 0's ``host:port``; ``None`` does nothing (one
+    process), as in the JAX package. The process group is gloo over TCP,
+    with ``DIST_TIMEOUT`` on every collective and transfer.
+    """
+    if coordinator is None:
+        return
+    dist.init_process_group("gloo", init_method=f"tcp://{coordinator}",
+                            world_size=num_processes, rank=process_id,
+                            timeout=DIST_TIMEOUT)
+
+
+def process_count() -> int:
+    """Processes in the run: 1 without a process group."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def process_index() -> int:
+    """This process's rank: 0 without a process group."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def shard_bounds(n: int, n_shards: int) -> List[Tuple[int, int]]:
+    """A window of ``n`` blocks split over ``n_shards`` shards: shard s
+    gets blocks ``[s * k, min((s + 1) * k, n))``, ``k = ceil(n / n_shards)``,
+    as the reference's leading-axis sharding of a padded batch does; the
+    last shards may be empty."""
+    k = -(-n // n_shards)
+    return [(min(s * k, n), min((s + 1) * k, n)) for s in range(n_shards)]
 
 
 def pad_batch(n: int, multiple: int) -> int:

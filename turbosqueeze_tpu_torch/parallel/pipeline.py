@@ -34,6 +34,15 @@ the container's declared size. Kernel launches and the device-to-host copy
 into pinned memory are asynchronous, so window k+1's host work runs while
 window k decodes; each window is waited for only when it is drained.
 
+Every entry point spreads a window's blocks over every local device of
+every process (``mesh.py``): the window splits into contiguous shards, one
+a device, and each process prepares and launches only its own shards. With
+several processes (``mesh.init_distributed``, gloo) a decode's blocks meet
+on rank 0 (``_to_host0``; the other ranks return ``b""``),
+``decompress_to_file`` writes each rank's blocks into the one file, and
+``compress`` hands every payload to every rank, so each returns the whole
+container.
+
 Encode: the host packs each window's bytes into pinned memory and copies
 them to the device, where the level picks the route: level 0 runs the
 upstream's hash-table parse in the emit kernel; level 1 runs phase A (the
@@ -52,13 +61,14 @@ from __future__ import annotations
 import ctypes
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
-from typing import List
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..format import (ContainerHeader, FormatError, pack_block_header,
-                      scan_block_table, split_blocks)
+from ..format import (BLOCK_SZ, ContainerHeader, FormatError,
+                      pack_block_header, scan_block_table, split_blocks)
 from ..kernels import decode_bulk as DBK
 from ..kernels import decode_gang as DGK
 from ..kernels import decode_stream as DST
@@ -130,32 +140,169 @@ class _Pending:
 
 
 
-def _assemble(pendings, total_size: int, n_blocks: int = 0,
-              progress=None) -> bytes:
-    """Drain each ``_Pending`` in turn into one fresh bytes object of
-    ``total_size``, each block copied once. progress: called with
-    ``(blocks_done, n_blocks)`` once per block, in block order. Raises
-    ``FormatError`` unless the blocks' sizes sum to ``total_size``."""
+class _Shard(NamedTuple):
+    """A window's blocks ``[lo, hi)`` on one device of process ``rank``;
+    ``pending`` holds their decoded words on this process, None on
+    another."""
+    lo: int
+    hi: int
+    rank: int
+    pending: Optional[_Pending]
+
+
+def _agree_max(values) -> List[int]:
+    """Element-wise max of each process's int list: one all-gather of a
+    short int64 tensor, nothing in one process."""
+    n = mesh_mod.process_count()
+    if n == 1:
+        return [int(v) for v in values]
+    mine = torch.tensor(values, dtype=torch.int64)
+    every = [torch.empty_like(mine) for _ in range(n)]
+    dist.all_gather(every, mine)
+    return torch.stack(every).max(0).values.tolist()
+
+
+class _Spread:
+    """One call's shards: this process's devices, the global shard count
+    ``n_shards`` (local devices times processes, each process holding the
+    next run of shards in rank order) and the window, in blocks (TSQX:
+    groups). Made once a call, on every process: it agrees the local
+    device count, the call's block count and its ``window`` argument across
+    processes and raises ``ValueError`` on every process when they differ.
+
+    Each process launches its own kernels, so no plane shape needs
+    agreeing. The JAX package agrees its resolver's fallback for a whole
+    window across processes (``pipeline.py:759``); here each shard decides
+    alone, and a shard the resolver declines goes to the stream kernel:
+    the bytes are the same."""
+
+    def __init__(self, device, n_items: int, window: int, default: int):
+        self.devices = mesh_mod.block_devices(device)
+        self.rank = mesh_mod.process_index()
+        mine = [len(self.devices), n_items, window]
+        agreed = _agree_max(mine + [-v for v in mine])
+        if agreed[:3] != [-v for v in agreed[3:]]:
+            raise ValueError(
+                f"processes disagree on (local devices, blocks, window): "
+                f"this one has {tuple(mine)}, the largest are "
+                f"{tuple(agreed[:3])}")
+        self.n_shards = len(self.devices) * mesh_mod.process_count()
+        self.window = window if window > 0 else default * self.n_shards
+
+    def shards(self, lo: int, hi: int):
+        """Each non-empty shard of items ``[lo, hi)``, in order: (first,
+        end, rank, device), device None for another process's shard."""
+        n_dev = len(self.devices)
+        for s, (a, b) in enumerate(mesh_mod.shard_bounds(hi - lo,
+                                                         self.n_shards)):
+            if a < b:
+                rank = s // n_dev
+                yield (lo + a, lo + b, rank,
+                       self.devices[s % n_dev] if rank == self.rank else None)
+
+
+def _lookahead(windows):
+    """Yields each window of ``windows`` (a generator that launches each as
+    it is asked for) only once the next one has been launched, so that
+    draining window k overlaps window k + 1."""
+    pending = None
+    for cur in windows:
+        if pending is not None:
+            yield pending
+        pending = cur
+    if pending is not None:
+        yield pending
+
+
+def _result_buffer(total_size: int):
+    """A fresh bytes object of ``total_size`` and a writable numpy view of
+    it: the result is written here before anything else sees it."""
     out, ptr = native._alloc_exact_bytes(total_size)
-    # the fresh bytes object is written here before anything else sees it
     dst = (np.ctypeslib.as_array((ctypes.c_uint8 * total_size)
                                  .from_address(ptr))
            if total_size else np.empty(0, np.uint8))
-    o = done = 0
-    for p in pendings:
-        for block in p.views():
-            n = len(block)
-            if o + n > total_size:
-                raise FormatError(f"decoded more than the {total_size} "
-                                  f"bytes the container declares")
-            dst[o:o + n] = block.numpy()
-            o += n
-            done += 1
+    return out, dst
+
+
+# the most bytes one transfer of the host-0 hop carries, as in the JAX
+# package (there a cap on one coordination-service value)
+_HOST0_CHUNK = 4 << 20
+
+
+def _check_sizes(sizes, total_size: int) -> None:
+    """Block sizes that fit a block and sum to the container's size, or
+    ``FormatError``: checked on every process before any block crosses
+    one, so that a corrupt container raises everywhere instead of leaving
+    a peer waiting."""
+    if max(sizes, default=0) > BLOCK_SZ:
+        raise FormatError(f"a block declares {max(sizes)} bytes, past "
+                          f"{BLOCK_SZ}")
+    if sum(sizes) != total_size:
+        raise FormatError(f"blocks declare {sum(sizes)} bytes, the "
+                          f"container declares {total_size}")
+
+
+def _local_blocks(shard: _Shard, sizes: List[int]):
+    """(block, its bytes) of a local shard, each checked against its
+    declared size (``FormatError``)."""
+    for b, block in zip(range(shard.lo, shard.hi), shard.pending.views()):
+        if len(block) != sizes[b]:
+            raise FormatError(f"block {b} decoded to {len(block)} bytes, it "
+                              f"declares {sizes[b]}")
+        yield b, block
+
+
+def _to_host0(windows, sizes: List[int], total_size: int,
+              progress=None) -> bytes:
+    """The decoded blocks of every process, in block order, on rank 0 (in
+    one process, the process itself); the other ranks return ``b""``, as
+    the JAX package's nonzero ranks do.
+
+    ``windows`` yields each window's ``_Shard`` list (the same on every
+    process); ``sizes`` is every block's declared size, which every process
+    knows from the block table, so no size travels. Rank 0 allocates the
+    result, copies each of its own blocks into it once and receives every
+    other block straight into its slice of it (``torch.distributed.recv``,
+    chunks of at most ``_HOST0_CHUNK``), in block order; ``progress`` is
+    called there with ``(blocks_done, n_blocks)`` once per block. The
+    other ranks send their blocks in block order. A block whose bytes
+    differ from its declared size raises ``FormatError`` before it is sent
+    or copied. A rank that fails mid-call leaves its peers waiting until
+    the process group's timeout, which then raises there."""
+    _check_sizes(sizes, total_size)
+    if mesh_mod.process_index() != 0:
+        # a window's sends are waited for once the next window's are
+        # posted; each holds a view of its pinned copy until then
+        sent = []
+        for shards in windows:
+            cur = []
+            for sh in shards:
+                if sh.pending is None:
+                    continue
+                for b, block in _local_blocks(sh, sizes):
+                    cur += [dist.isend(block[c:c + _HOST0_CHUNK], dst=0, tag=b)
+                            for c in range(0, len(block), _HOST0_CHUNK)]
+            for w in sent:
+                w.wait()
+            sent = cur
+        for w in sent:
+            w.wait()
+        return b""
+    out, dst = _result_buffer(total_size)
+    offs = np.concatenate([[0], np.cumsum(sizes, dtype=np.int64)]).tolist()
+    for shards in windows:
+        for sh in shards:
+            if sh.pending is not None:
+                for b, block in _local_blocks(sh, sizes):
+                    dst[offs[b]:offs[b + 1]] = block.numpy()
+            else:
+                for b in range(sh.lo, sh.hi):
+                    into = torch.from_numpy(dst[offs[b]:offs[b + 1]])
+                    for c in range(0, sizes[b], _HOST0_CHUNK):
+                        dist.recv(into[c:c + _HOST0_CHUNK], src=sh.rank, tag=b)
             if progress is not None:
-                progress(done, n_blocks)
-    if o != total_size:
-        raise FormatError(
-            f"decoded {o} bytes, container declares {total_size}")
+                for b in range(sh.lo, sh.hi):
+                    progress(b + 1, len(sizes))
     return out
 
 
@@ -327,20 +474,26 @@ def decompress(stream: bytes, device=None, impl: str = "auto",
                progress=None) -> bytes:
     """Decode a ``.tsq`` container on ``device`` -> its bytes.
 
-    device: a CUDA device (default: the first), or ``"cpu"`` for the
-    kernels' plain PyTorch versions; a CUDA device with no GPU raises.
+    device: the devices a window's blocks spread over, one contiguous
+    shard each (``mesh.block_devices``): by default every CUDA device; one
+    device (``"cuda:1"``, ``"cpu"`` for the kernels' plain PyTorch
+    versions) or a sequence of them, repeats allowed. A CUDA device with no
+    GPU raises. With several processes (``mesh.init_distributed``) each
+    decodes only its own shards, and rank 0 returns the bytes while every
+    other rank returns ``b""``.
     impl: ``"gang"`` = host resolve + gang kernel, with the stream kernel
-    for windows the resolver declines; ``"bulk"``, ``"bulk2"``,
+    for shards the resolver declines; ``"bulk"``, ``"bulk2"``,
     ``"bulkn"`` = host resolve + the bulk kernel on single, paired or
     N-way merged record streams, with the same fallback; ``"stream"`` =
     the stream kernel for every window; ``"pallas"`` = host tokenize +
     token-chunk kernel; ``"xla"`` = host tokenize + the torch
     scatter/gather decode; ``"auto"`` = gang. The host work runs in the
     native core, which is built at first use. window_blocks: blocks per
-    window (default ``WINDOW_BLOCKS``, ``XLA_WINDOW_BLOCKS`` for xla).
-    dictionary: the preset dictionary the container was compressed with.
-    progress: called with ``(blocks_done, n_blocks)`` once per block, in
-    block order, as the blocks are assembled.
+    window over all shards (default ``WINDOW_BLOCKS``, ``XLA_WINDOW_BLOCKS``
+    for xla, times the shard count, so that each shard keeps one device's
+    geometry). dictionary: the preset dictionary the container was
+    compressed with. progress: called with ``(blocks_done, n_blocks)`` once
+    per block, in block order, as the blocks are assembled (on rank 0).
     """
     if impl == "auto":
         impl = "gang"
@@ -348,39 +501,38 @@ def decompress(stream: bytes, device=None, impl: str = "auto",
     hdr, table = scan_block_table(stream)
     windows = _decoded_windows(stream, table, device, impl, window_blocks,
                                dictionary)
-    return _assemble((p for _, p in windows), hdr.total_size, len(table),
-                     progress)
+    return _to_host0(windows, _declared_sizes(stream, table),
+                     hdr.total_size, progress)
 
 
 def _decoded_windows(stream, table, device, impl: str, window_blocks: int,
                      dictionary):
-    """Decode the container's windows through the route ``impl`` (the
-    stream kernel for a window the resolver declines). Yields (first
-    block, _Pending) per window, in order; window k is yielded only after
-    window k + 1 has been launched, so draining k overlaps k + 1. The
-    dictionary and the device are checked here, at the call, before the
-    caller writes anything."""
+    """Decode the container's windows through the route ``impl``, each of
+    this process's shards on its device (the stream kernel for a shard the
+    resolver declines). Yields each window's ``_Shard`` list; window k is
+    yielded only after every local shard of window k + 1 has been
+    launched. The dictionary, the devices and the processes' agreement are
+    checked here, at the call, before the caller writes anything."""
     dictionary = _check_dictionary(dictionary)
-    dev = mesh_mod.block_devices(device)[0]
-    if window_blocks <= 0:
-        window_blocks = XLA_WINDOW_BLOCKS if impl == "xla" else WINDOW_BLOCKS
+    spread = _Spread(device, len(table), window_blocks,
+                     XLA_WINDOW_BLOCKS if impl == "xla" else WINDOW_BLOCKS)
+
+    def launch(lo, hi, dev, pool):
+        win = table[lo:hi]
+        r = _WINDOW_ROUTES[impl](stream, win, dev, pool, dictionary)
+        if r is None:  # the resolver declined a block
+            r = _stream_window(stream, win, dev, pool, dictionary)
+        return _Pending(r[0], _declared_sizes(stream, win), r[1])
 
     def windows():
-        pending = None
         with ThreadPoolExecutor() as pool:  # the native core releases the GIL
-            for lo in range(0, len(table), window_blocks):
-                win = table[lo:lo + window_blocks]
-                r = _WINDOW_ROUTES[impl](stream, win, dev, pool, dictionary)
-                if r is None:  # the resolver declined a block
-                    r = _stream_window(stream, win, dev, pool, dictionary)
-                cur = lo, _Pending(r[0], _declared_sizes(stream, win), r[1])
-                if pending is not None:
-                    yield pending
-                pending = cur
-        if pending is not None:
-            yield pending
+            for lo in range(0, len(table), spread.window):
+                yield [_Shard(a, b, rank, None if dev is None else
+                              launch(a, b, dev, pool))
+                       for a, b, rank, dev in spread.shards(
+                           lo, min(lo + spread.window, len(table)))]
 
-    return windows()
+    return _lookahead(windows())
 
 
 def decompress_to_file(stream: bytes, out_path, device=None,
@@ -390,13 +542,15 @@ def decompress_to_file(stream: bytes, out_path, device=None,
     ``out_path``; returns the decoded size.
 
     Every block decodes to at most 4 MiB, so block b's bytes go at
-    ``b << 22`` of the file, which is first truncated to the container's
-    size: each window's blocks are written as it drains, while the next
-    window decodes, and no output is assembled in memory. ``impl`` is one
-    of the JAX package's set (``"stream"``, ``"xla"``, ``"bulk"``,
-    ``"bulk2"``, ``"bulkn"``, ``"gang"``; ``"auto"`` = ``"gang"``), run as
-    in ``decompress``; ``device``, ``window_blocks`` and ``dictionary`` as
-    there. One process writes the whole file.
+    ``b << 22`` of the file, which rank 0 first creates and truncates to
+    the container's size: each window's blocks are written as it drains,
+    while the next window decodes, and no output is assembled in memory.
+    ``impl`` is one of the JAX package's set (``"stream"``, ``"xla"``,
+    ``"bulk"``, ``"bulk2"``, ``"bulkn"``, ``"gang"``; ``"auto"`` =
+    ``"gang"``), run as in ``decompress``; ``device``, ``window_blocks``
+    and ``dictionary`` as there. With several processes each writes only
+    its own shards' blocks into the one file, between two barriers, and
+    every rank returns the container's size.
     """
     if impl == "auto":
         impl = "gang"
@@ -404,14 +558,27 @@ def decompress_to_file(stream: bytes, out_path, device=None,
     hdr, table = scan_block_table(stream)
     windows = _decoded_windows(stream, table, device, impl, window_blocks,
                                dictionary)
+    sizes = _declared_sizes(stream, table)
+    _check_sizes(sizes, hdr.total_size)
+    several = mesh_mod.process_count() > 1
+    if mesh_mod.process_index() == 0:
+        with open(out_path, "wb") as f:
+            f.truncate(hdr.total_size)
+    if several:
+        dist.barrier()
     written = 0
-    with open(out_path, "wb") as f:
-        f.truncate(hdr.total_size)
-        for lo, p in windows:
-            for b, part in enumerate(p.views()):
-                f.seek((lo + b) << 22)
-                f.write(part.numpy())
-                written += len(part)
+    with open(out_path, "r+b") as f:
+        for shards in windows:
+            for sh in shards:
+                if sh.pending is None:
+                    continue
+                for b, part in _local_blocks(sh, sizes):
+                    f.seek(b << 22)
+                    f.write(part.numpy())
+                    written += len(part)
+    if several:
+        dist.barrier()
+        return hdr.total_size
     if written != hdr.total_size:
         raise FormatError(
             f"decoded {written} bytes, container declares {hdr.total_size}")
@@ -425,13 +592,15 @@ def decompress_to_words(stream: bytes, device=None, impl: str = "pallas",
     Returns (words, sizes, header): ``words`` is (B, OUT_ROWS, 128) int32
     on ``device`` with B = max(n_blocks, 1); row b holds block b's decoded
     bytes as little-endian words, its first ``sizes[b]`` bytes defined.
-    impl: ``"pallas"`` (host tokenize + token-chunk kernel) or
-    ``"stream"`` (the raw-payload stream kernel). Windows of
+    ``device``: one device (default: the first CUDA device); several
+    devices or processes raise ``ValueError``, since the result is one
+    tensor on one device. impl: ``"pallas"`` (host tokenize + token-chunk
+    kernel) or ``"stream"`` (the raw-payload stream kernel). Windows of
     ``window_blocks`` (default ``WINDOW_BLOCKS``) decode into slices of
     the one output tensor.
     """
     _check_impl(impl, ("pallas", "stream"))
-    dev = mesh_mod.block_devices(device)[0]
+    dev = mesh_mod.one_device(device, "decompress_to_words")
     window_blocks = window_blocks if window_blocks > 0 else WINDOW_BLOCKS
     hdr, table = scan_block_table(stream)
     words = torch.zeros((max(len(table), 1), DK.OUT_ROWS, DK.LANES),
@@ -550,51 +719,115 @@ def compress(data: bytes, ext: bool = True, level: int = 1, device=None,
     lifts the level to at least 1; every block is searched and parsed as
     concat(dictionary, block).
 
-    device: a CUDA device (default: the first), or ``"cpu"`` for the
-    kernels' plain PyTorch versions; a CUDA device with no GPU raises.
-    progress: called with ``(blocks_done, n_blocks)`` once per block, in
-    block order. emit_impl: the level-1 emitter, for level 1 and the
-    dictionary: ``"scan"``, the single-pass emit kernel; ``"bulk"``, the
-    two-pass decide and assemble kernels; ``"flat"``, the flat decide
-    kernel and the sort layout. Level 0 and level >= 2 ignore it. A block
-    that the bulk or flat emitter flags as overflowed is emitted on the
-    host from the card's candidates (``overflow_blocks`` counts them).
-    window_blocks: blocks per window (default ``WINDOW_BLOCKS``).
+    device: the devices a window's blocks spread over, as in
+    ``decompress`` (default: every CUDA device; ``"cpu"`` for the kernels'
+    plain PyTorch versions; a CUDA device with no GPU raises). With several
+    processes each compresses its own shards and every rank returns the
+    whole container. progress: called with ``(blocks_done, n_blocks)``
+    once per block, in block order. emit_impl: the level-1 emitter, for
+    level 1 and the dictionary: ``"scan"``, the single-pass emit kernel;
+    ``"bulk"``, the two-pass decide and assemble kernels; ``"flat"``, the
+    flat decide kernel and the sort layout. Level 0 and level >= 2 ignore
+    it. A block that the bulk or flat emitter flags as overflowed is
+    emitted on the host from the card's candidates (``overflow_blocks``
+    counts them). window_blocks: blocks per window over all shards
+    (default ``WINDOW_BLOCKS`` times the shard count).
     """
-    global overflow_blocks
     if emit_impl not in _EMITTERS:
         raise ValueError(f"unknown emit_impl: {emit_impl!r}")
-    dlen = 0
     if dictionary is not None:
         if not 0 < len(dictionary) <= native.MAX_DICT:
             raise ValueError(f"dictionary must be 1..{native.MAX_DICT} bytes")
-        dlen, level = len(dictionary), max(level, 1)
-    dev = mesh_mod.block_devices(device)[0]
-    if window_blocks <= 0:
-        window_blocks = WINDOW_BLOCKS
-
+        level = max(level, 1)
     blocks = split_blocks(data)
+    spread = _Spread(device, len(blocks), window_blocks, WINDOW_BLOCKS)
+
     parts = [ContainerHeader(len(blocks), len(data)).pack()]
     with ThreadPoolExecutor() as pool:  # the native core releases the GIL
-        for lo in range(0, len(blocks), window_blocks):
-            win = blocks[lo:lo + window_blocks]
-            batch = _upload_window(win, dictionary, dev)
-            cands = _phase_a(batch, win, dlen) if level >= 1 else None
-            if level <= 1:
-                emitter = emit_impl if cands is not None else "table"
-                payloads = _download_window(*_emit_window(
-                    batch, cands, win, dlen, ext, emitter), emitter)
-                over = [b for b, p in enumerate(payloads) if p is None]
-                if over:
-                    emit = _host_emitter(win, cands, dictionary, ext, level)
-                    for b in over:
-                        payloads[b] = emit(b)
-                    overflow_blocks += len(over)
-            else:
-                emit = _host_emitter(win, cands, dictionary, ext, level)
-                payloads = list(pool.map(emit, range(len(win))))
-            for b, payload in enumerate(payloads):
-                parts += [pack_block_header(len(payload), ext), payload]
+        for lo in range(0, len(blocks), spread.window):
+            hi = min(lo + spread.window, len(blocks))
+            shards = list(spread.shards(lo, hi))
+            # every local shard is launched before the first is drained
+            launched = [(a, b, _launch_shard(blocks[a:b], dev, dictionary,
+                                             ext, level, emit_impl))
+                        for a, b, _, dev in shards if dev is not None]
+            mine = {}
+            for a, b, shard in launched:
+                mine.update(zip(range(a, b), _shard_payloads(
+                    blocks[a:b], shard, dictionary, ext, level, pool)))
+            payloads = _share_payloads(shards, mine)
+            for b in range(lo, hi):
+                parts += [pack_block_header(len(payloads[b]), ext),
+                          payloads[b]]
                 if progress is not None:
-                    progress(lo + b + 1, len(blocks))
+                    progress(b + 1, len(blocks))
     return b"".join(parts)
+
+
+def _launch_shard(win: List[bytes], dev, dictionary, ext: bool, level: int,
+                  emit_impl: str):
+    """Upload a shard's blocks to ``dev`` and launch phase A (level >= 1)
+    and, at levels 0-1, the emitter, without waiting: (candidates or None,
+    (emitter, its planes) or None)."""
+    dlen = len(dictionary) if dictionary is not None else 0
+    batch = _upload_window(win, dictionary, dev)
+    cands = _phase_a(batch, win, dlen) if level >= 1 else None
+    if level >= 2:
+        return cands, None
+    emitter = emit_impl if cands is not None else "table"
+    return cands, (emitter, _emit_window(batch, cands, win, dlen, ext,
+                                         emitter))
+
+
+def _shard_payloads(win: List[bytes], shard, dictionary, ext: bool,
+                    level: int, pool) -> List[bytes]:
+    """A launched shard's payloads: the emitter's, each block it flagged as
+    overflowed emitted on the host from the candidates; at level >= 2
+    every block emitted on the host, in the pool."""
+    global overflow_blocks
+    cands, emitted = shard
+    if emitted is None:
+        emit = _host_emitter(win, cands, dictionary, ext, level)
+        return list(pool.map(emit, range(len(win))))
+    payloads = _download_window(*emitted[1], emitted[0])
+    over = [b for b, p in enumerate(payloads) if p is None]
+    if over:
+        emit = _host_emitter(win, cands, dictionary, ext, level)
+        for b in over:
+            payloads[b] = emit(b)
+        overflow_blocks += len(over)
+    return payloads
+
+
+def _share_payloads(shards, mine: dict) -> dict:
+    """Every payload of a window on every process: ``mine`` maps this
+    process's blocks to their payloads, ``shards`` is the window's
+    ``(first, end, rank, device)`` list. Across processes, one all-gather
+    of each rank's payload sizes, then one of its payloads joined and
+    padded to the longest rank's; every rank then holds every block."""
+    n = mesh_mod.process_count()
+    if n == 1:
+        return mine
+    owned = [[] for _ in range(n)]
+    for a, b, rank, _ in shards:
+        owned[rank] += range(a, b)
+    width = max(1, max(map(len, owned)))
+    mine_blocks = owned[mesh_mod.process_index()]
+    sizes = torch.zeros(width, dtype=torch.int64)
+    sizes[:len(mine_blocks)] = torch.tensor(
+        [len(mine[b]) for b in mine_blocks], dtype=torch.int64)
+    every = [torch.empty_like(sizes) for _ in range(n)]
+    dist.all_gather(every, sizes)
+    span = max(1, max(int(t.sum()) for t in every))
+    joined = torch.zeros(span, dtype=torch.uint8)
+    raw = b"".join(mine[b] for b in mine_blocks)
+    joined.numpy()[:len(raw)] = np.frombuffer(raw, np.uint8)
+    bufs = [torch.empty_like(joined) for _ in range(n)]
+    dist.all_gather(bufs, joined)
+    out = {}
+    for rank in range(n):
+        flat, o = bufs[rank].numpy(), 0
+        for b, size in zip(owned[rank], every[rank].tolist()):
+            out[b] = flat[o:o + size].tobytes()
+            o += size
+    return out

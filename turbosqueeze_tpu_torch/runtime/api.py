@@ -44,9 +44,10 @@ def compress(data: bytes, ext: bool = True, backend: str = "auto",
     ``dictionary`` (<= 65532 bytes) is shared context virtually preceding
     every block, at level >= 1; both ends must use the same one.
     ``progress`` is called with ``(blocks_done, n_blocks)`` per block.
-    ``device`` picks the card (default: the first CUDA device; ``"cpu"``
-    runs the kernels' plain versions); every backend's container is the
-    same bytes.
+    ``device`` picks the devices each window's blocks spread over
+    (default: every CUDA device; one device, ``"cpu"`` for the kernels'
+    plain versions, or a sequence of devices); every backend's container
+    is the same bytes.
     """
     b = _resolve(backend)
     if dictionary is not None:
@@ -73,9 +74,10 @@ def decompress(stream: bytes, backend: str = "auto",
                progress=None) -> bytes:
     """Decompress a .tsq container, on the card unless ``backend`` names a
     host codec. ``dictionary`` is the preset dictionary it was compressed
-    with, if any. ``device`` picks the card (default: the first CUDA
-    device; ``"cpu"`` runs the kernels' plain versions). ``progress`` is
-    called with ``(blocks_done, n_blocks)`` per block (not for TSQX)."""
+    with, if any. ``device`` picks the devices as in ``compress``; with
+    several processes (``parallel.mesh.init_distributed``) rank 0 returns
+    the bytes and the others ``b""``. ``progress`` is called with
+    ``(blocks_done, n_blocks)`` per block (not for TSQX)."""
     b = _resolve(backend)
     if tsqx.is_tsqx(stream):
         if dictionary is not None:

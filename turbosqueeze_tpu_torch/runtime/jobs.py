@@ -8,8 +8,9 @@ its future; nothing raises across the worker boundary.
 
 A host thread pool runs the jobs. The threads overlap: the native core
 releases the GIL inside its calls, and the device pipeline waits on the
-card. The default backend ``"auto"`` is the card (``device=`` picks one;
-``"cpu"`` runs the kernels' plain versions); file-to-file jobs stream
+card. The default backend ``"auto"`` is the card (``device=`` picks the
+devices as ``api.compress`` does, by default every CUDA device; ``"cpu"``
+runs the kernels' plain versions); file-to-file jobs stream
 through the native core's file pipeline only with ``backend="native"``
 (``native.streaming_ok``).
 """

@@ -51,7 +51,8 @@ from .format import BLOCK_SZ, FormatError, scan_block_table
 from .kernels import decode_gang as DGK
 from .kernels.decode_bulk import EMPTY_PREP, rows_for_bytes
 from .parallel import mesh as mesh_mod
-from .parallel.pipeline import GANG_SRECS, _assemble, _Pending
+from .parallel.pipeline import (GANG_SRECS, _lookahead, _Pending, _Shard,
+                                _Spread, _to_host0)
 from .runtime import native
 
 MAGIC = b"TSQX"
@@ -62,7 +63,7 @@ assert _HDR.size == 48
 ROW_BYTES = 512
 LANES = 128
 SLOT_RECS = (8, 16, 32)  # the gang kernel's slot widths
-BATCH_GROUPS = 16  # groups a decode batch: bounds the device memory
+BATCH_GROUPS = 16  # groups a device's batch: bounds its memory
 
 
 def is_tsqx(data) -> bool:
@@ -170,6 +171,8 @@ class TsqxView:
                               f"container has {len(buf)}")
         sizes = np.frombuffer(buf, np.uint32, n, o)
         self.sizes = sizes.tolist()
+        # every block of the padded groups, 0 for a padding block
+        self.block_sizes = self.sizes + [0] * (self.n_pad - n)
         o += 4 * n
         self.gmeta = np.frombuffer(
             buf, np.int32, self.n_groups * DGK.GMETA_WORDS, o).reshape(
@@ -212,42 +215,53 @@ def _host_planes(view: TsqxView, lo: int, hi: int, pin: bool):
     return out
 
 
+def _decode_groups(view: TsqxView, dev: torch.device, lo: int, hi: int):
+    """Groups [lo, hi) through the gang kernel on ``dev``: (words,
+    sizes)."""
+    planes = _host_planes(view, lo, hi, dev.type == "cuda")
+    planes = [t.to(dev, non_blocking=True) for t in planes]
+    words = DGK.decode_gang_batch(*planes, nblk=view.nblk,
+                                  slot_recs=view.slot_recs)
+    return words, view.block_sizes[lo * view.nblk:hi * view.nblk]
+
+
 def decode_to_words(view: TsqxView, device=None, groups: slice = None):
     """Decode (a slice of) a TSQX container's groups with the gang kernel;
     returns (words, sizes), words (B, OUT_ROWS, 128) int32 left on the
     device, B = nblk times the groups, row b holding block b's decoded
     bytes as little-endian words, its first ``sizes[b]`` bytes defined
-    (0 for a padding block). ``device``: a CUDA device (default: the
-    first; raises where there is none) or ``"cpu"`` for the kernel's plain
-    version. ``groups`` picks a contiguous range of groups."""
-    dev = mesh_mod.block_devices(device)[0]
+    (0 for a padding block). ``device``: one device (default: the first
+    CUDA device; raises where there is none), or ``"cpu"`` for the
+    kernel's plain version; several devices or processes raise
+    ``ValueError``, since the result is one tensor on one device.
+    ``groups`` picks a contiguous range of groups."""
+    dev = mesh_mod.one_device(device, "tsqx.decode_to_words")
     g = groups if groups is not None else slice(0, view.n_groups)
     lo = g.start or 0
     hi = min(g.stop if g.stop is not None else view.n_groups, view.n_groups)
-    planes = _host_planes(view, lo, hi, dev.type == "cuda")
-    planes = [t.to(dev, non_blocking=True) for t in planes]
-    words = DGK.decode_gang_batch(*planes, nblk=view.nblk,
-                                  slot_recs=view.slot_recs)
-    sizes = [view.sizes[b] if b < view.n_blocks else 0
-             for b in range(lo * view.nblk, hi * view.nblk)]
-    return words, sizes
+    return _decode_groups(view, dev, lo, hi)
 
 
 def decompress(data, device=None) -> bytes:
-    """TSQX container -> its original bytes, decoded on ``device`` (as in
-    ``decode_to_words``) in batches of at most ``BATCH_GROUPS`` groups;
-    batch k + 1 is launched before batch k is drained."""
+    """TSQX container -> its original bytes. Each batch of
+    ``BATCH_GROUPS`` times the shard count groups splits into contiguous
+    shards of groups, one on each device of ``device`` (as in
+    ``pipeline.decompress``: by default every CUDA device; ``"cpu"`` runs
+    the kernel's plain version) in every process, each decoded through the
+    gang kernel on its device; batch k + 1 is launched before batch k is
+    drained. With several processes rank 0 returns the bytes and the
+    others ``b""``."""
     view = TsqxView(data)
+    spread = _Spread(device, view.n_groups, 0, BATCH_GROUPS)
+    nblk = view.nblk
 
     def batches():
-        pending = None
-        for lo in range(0, view.n_groups, BATCH_GROUPS):
-            cur = _Pending(*decode_to_words(
-                view, device, slice(lo, lo + BATCH_GROUPS)))
-            if pending is not None:
-                yield pending
-            pending = cur
-        if pending is not None:
-            yield pending
+        for lo in range(0, view.n_groups, spread.window):
+            yield [_Shard(a * nblk, b * nblk, rank,
+                          None if dev is None else
+                          _Pending(*_decode_groups(view, dev, a, b)))
+                   for a, b, rank, dev in spread.shards(
+                       lo, min(lo + spread.window, view.n_groups))]
 
-    return _assemble(batches(), view.total_size)
+    return _to_host0(_lookahead(batches()), view.block_sizes,
+                     view.total_size)
