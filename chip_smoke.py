@@ -97,13 +97,20 @@ Phases:
      two shards on ``cuda:0`` (``device=["cuda:0", "cuda:0"]``), phase 3's
      level-1 container through ``gang``, ``pallas`` and ``bulk2``,
      ``compress(level=1)`` and TSQX at nblk 4, each bit-exact and timed in
-     turns beside one shard; (b) every CUDA device, where the machine has
-     more than one (else one line says so); (c) two processes on the one
-     card (``turbosqueeze_tpu_torch.parallel._worker``, gloo on
-     localhost): decode (``gang``, ``pallas``), ``decompress_to_file``
-     (``gang``), ``compress(level=1)`` and TSQX at nblk 4 on the same
-     input, checked by the workers, each rank's wall and host cores, the
-     host-0 hop's MB/s, and the gang decode again in windows of 32 blocks.
+     turns beside one shard; then the device-resident decodes,
+     ``decompress_to_words`` (``pallas``, ``stream``) and
+     ``tsqx.decode_to_words`` (nblk 4), over two shards on ``cuda:0`` and
+     one, in turns, timed until the card has finished (the words stay
+     there), then every block checked from the card and every shard on
+     ``cuda:0``; (b) every CUDA device, the same calls and the words
+     routes, where the machine has more than one (else one line says so);
+     (c) two processes on the one card
+     (``turbosqueeze_tpu_torch.parallel._worker``, gloo on localhost):
+     decode (``gang``, ``pallas``), ``decompress_to_file`` (``gang``),
+     ``compress(level=1)``, TSQX at nblk 4 and the three words routes on
+     the same input, checked by the workers (each rank holds exactly its
+     own shards), each rank's wall and host cores, the host-0 hop's MB/s,
+     and the gang decode again in windows of 32 blocks.
 
 Every kernel is held against its plain version at zero tolerance over the
 bytes the format defines (each block's first ``size`` bytes, or each
@@ -201,6 +208,36 @@ def say(phase: str, **kv) -> None:
 def _bytes_of(words, b: int, lo: int, n: int) -> bytes:
     """Bytes [lo, lo + n) of block b's decoded words."""
     return words[b].cpu().numpy().reshape(-1).view("u1")[lo:lo + n].tobytes()
+
+
+def _blocks_of(data: bytes, sizes) -> list:
+    """Each 4 MiB block of ``data``, cut to its declared size."""
+    return [data[b << 22:(b << 22) + sizes[b]]
+            for b in range(-(-len(data) >> 22))]
+
+
+def _words_exact(words, sizes, blocks, what: str, device=None) -> None:
+    """A ``mesh.BlockShards`` of decoded words against ``blocks`` (block
+    b's bytes): each shard on the card (on ``device`` when given), every
+    real row's first ``sizes[b]`` bytes equal to block b, every padding
+    row zero, the shards covering rows ``[0, shape[0])`` in order."""
+    end = 0
+    for sh in words.shards:
+        check(sh.data.device == sh.device
+              and (sh.device == torch.device(device) if device
+                   else sh.device.type == "cuda"),
+              f"{what}: a shard on {sh.data.device}")
+        check(sh.index.start == end, f"{what}: shard rows {sh.index}")
+        end = sh.index.stop
+        host = sh.data.cpu().numpy().reshape(sh.data.shape[0], -1).view("u1")
+        for i, row in enumerate(host):
+            b = sh.index.start + i
+            if b < len(blocks):
+                check(row[:sizes[b]].tobytes() == blocks[b],
+                      f"{what}: block {b} != input")
+            else:
+                check(not row.any(), f"{what}: padding row {b} not zero")
+    check(end == words.shape[0], f"{what}: shards end at row {end}")
 
 
 def _compare(errs, name: str, got: bytes, ref: bytes, want: bytes,
@@ -1356,16 +1393,11 @@ def phase7(errs, counts, timing, data, streams):
         stream))
     torch.cuda.synchronize()
     words_ms = (time.perf_counter() - t0) * 1e3
-    check(words.device.type == "cuda"
-          and tuple(words.shape) == (len(table), DK.OUT_ROWS, 128),
-          f"decompress_to_words: words {tuple(words.shape)}")
-    flat = words.cpu().view(torch.uint8).reshape(len(table), -1)
-    pos = 0
-    for b, n in enumerate(sizes):
-        check(flat[b, :n].numpy().tobytes() == data[pos:pos + n],
-              f"decompress_to_words: block {b} != input")
-        pos += n
-    del words, flat
+    check(words.shape[0] >= len(table) and words.shape[1:]
+          == (DK.OUT_ROWS, 128) and len(sizes) == len(table),
+          f"decompress_to_words: words {words.shape}")
+    _words_exact(words, sizes, _blocks_of(data, sizes), "decompress_to_words")
+    del words
     say("phase7", decompress_to_words=True, blocks=len(sizes), exact=True,
         e2e_ms=f"{words_ms:.1f}")
 
@@ -2352,15 +2384,15 @@ def _tsqx_words(errs, data, packs, plain) -> None:
         for lo in range(0, view.n_groups, tsqx.BATCH_GROUPS):
             words, sizes = tsqx.decode_to_words(
                 view, groups=slice(lo, lo + tsqx.BATCH_GROUPS))
-            check(words.device.type == "cuda", "decode_to_words left the card")
-            host = words.cpu()
-            for b, size in enumerate(sizes):
-                o = (lo * nblk + b) * 4 * MiB
-                check(_bytes_of(host, b, 0, size) == data[o:o + size],
-                      f"tsqx nblk {nblk}: decode_to_words block {b}")
+            o = lo * nblk * 4 * MiB
+            _words_exact(words, sizes, [
+                data[o + b * 4 * MiB:o + b * 4 * MiB + sizes[b]]
+                for b in range(min(len(sizes), view.n_blocks - lo * nblk))],
+                f"tsqx nblk {nblk}: decode_to_words groups {lo}..")
             if lo == 0:
+                host = words.shards[0].data[:nblk].cpu()
                 ref = torch.from_numpy(ref)
-                check(torch.equal(host[:nblk], ref),
+                check(torch.equal(host, ref),
                       f"tsqx nblk {nblk} group 0: kernel != plain words")
                 for b in range(nblk):
                     _compare(errs, "decode_gang",
@@ -2368,7 +2400,8 @@ def _tsqx_words(errs, data, packs, plain) -> None:
                              _bytes_of(ref, b, 0, sizes[b]),
                              data[b * 4 * MiB:b * 4 * MiB + sizes[b]],
                              f"tsqx nblk {nblk} group 0 block {b}")
-            del words, host
+                del host
+            del words
         say("phase10", tsqx_nblk=nblk, decode_to_words="exact",
             group0_plain_ms=f"{plain_ms:.1f}", kernel_equals_plain=True)
 
@@ -2497,6 +2530,40 @@ def _shards_timed(counts, name, kernel, want, mb, call) -> None:
             ("host_cores", "/".join(f"{c:.2f}" for _, c in r)))})
 
 
+def _words_timed(counts, name, kernel, data, mb, call) -> None:
+    """``call(device)`` -> (``BlockShards``, sizes), a device-resident
+    decode of phase 3's input, as a main path over one shard (``_CARD``)
+    and two shards on it, in turns (one, two, two, one): each run ends
+    when the card has finished (the words stay there), launches
+    ``kernel`` and is then checked block by block from the card, every
+    shard on ``_CARD``; wall ms, MB/s and host cores of both."""
+    runs = {1: [], 2: []}
+    for n in (1, 2, 2, 1):
+        before = counts[kernel]
+
+        def run():
+            out = call(_CARD if n == 1 else [_CARD] * n)
+            torch.cuda.synchronize(_CARD)
+            return out
+
+        (words, sizes), ms, cores = _cpu_wall(lambda: _main_path(counts, run))
+        check(counts[kernel] > before,
+              f"phase11 {name}, {n} shard(s): {kernel} never launched")
+        blocks = _blocks_of(data, sizes)
+        check(len(words.shards) == n and words.shape[0] >= len(blocks),
+              f"phase11 {name}, {n} shard(s): {len(words.shards)} shards, "
+              f"shape {words.shape}")
+        _words_exact(words, sizes, blocks, f"phase11 {name}, {n} shard(s)",
+                     _CARD)
+        del words
+        runs[n].append((ms, cores))
+    say("phase11", spread=name, card=_CARD, exact=True, words_on_card=True,
+        **{f"shards{n}_{k}": v for n, r in runs.items() for k, v in (
+            ("MBps", f"{mb / statistics.mean(m for m, _ in r) * 1e3:.1f}"),
+            ("wall_ms", "/".join(f"{m:.1f}" for m, _ in r)),
+            ("host_cores", "/".join(f"{c:.2f}" for _, c in r)))})
+
+
 def _worker_pair(tmp: str, args: list) -> dict:
     """Two ranks of the port's worker on ``_CARD`` over the inputs in
     ``tmp``, joined by gloo on localhost, with the worker's ``args``:
@@ -2537,10 +2604,12 @@ def _worker_pair(tmp: str, args: list) -> dict:
 
 def _two_processes(data, stream, mb) -> None:
     """Two processes on ``_CARD``: decode (gang, pallas),
-    ``decompress_to_file`` (gang), ``compress(level=1)`` and TSQX at nblk 4
-    on phase 3's input, a cold run and a warm one each, checked by the
-    workers (rank 0 gets the input, rank 1 ``b""``; both ranks
-    ``native.compress``'s container), and the host-0 hop alone; then the
+    ``decompress_to_file`` (gang), ``compress(level=1)``, TSQX at nblk 4,
+    ``decompress_to_words`` (pallas, stream) and ``tsqx.decode_to_words``
+    (nblk 4) on phase 3's input, a cold run and a warm one each, checked by
+    the workers (rank 0 gets the input, rank 1 ``b""``; both ranks
+    ``native.compress``'s container; each rank exactly its own shards of
+    the words, every block exact), and the host-0 hop alone; then the
     gang decode again in windows of 32 blocks, 16 a rank, so that each
     rank's next window is resolved while its last decodes. Each rank's
     wall and host cores per op."""
@@ -2548,17 +2617,22 @@ def _two_processes(data, stream, mb) -> None:
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        (Path(tmp) / "input.bin").write_bytes(data)
-        (Path(tmp) / "input.tsq").write_bytes(stream)
+        for name in ("input", "words"):
+            (Path(tmp) / f"{name}.bin").write_bytes(data)
+            (Path(tmp) / f"{name}.tsq").write_bytes(stream)
         runs = [(0, _worker_pair(tmp, [
             "--reps", "2", "--ops", "decompress:gang,decompress:pallas,"
-            "file:gang,compress:1,tsqx:4,hop"])),
+            "file:gang,compress:1,tsqx:4,hop,words:pallas,words:stream,"
+            "tsqx_words:4"])),
             (32, _worker_pair(tmp, ["--reps", "2", "--window", "32",
                                     "--ops", "decompress:gang"]))]
     for window, recs in runs:
         for op, rr in recs.items():
+            # a words op ends when both ranks hold their shards
+            wall = (max(rr[0, 1]["wall_ms"], rr[1, 1]["wall_ms"])
+                    if "words" in op else rr[0, 1]["wall_ms"])
             extra = ({"hop_MBps": f"{rr[0, 1]['MBps']:.1f}"} if op == "hop"
-                     else {"MBps": f"{mb / rr[0, 1]['wall_ms'] * 1e3:.1f}"})
+                     else {"MBps": f"{mb / wall * 1e3:.1f}"})
             say("phase11", processes=2, card=_CARD, op=op,
                 window_blocks=window or "default", exact=True, **extra,
                 **{f"rank{k}_{f}": "/".join(
@@ -2571,8 +2645,10 @@ def phase11(counts, data, streams):
     """One call's blocks over several shards: (a) every window split into
     two shards on one card, phase 3's level-1 container through ``gang``,
     ``pallas`` and ``bulk2``, ``compress(level=1)`` and TSQX at nblk 4,
-    each timed beside one shard in turns; (b) every CUDA device, where the
-    machine has more than one; (c) two processes on the one card."""
+    and through the device-resident decodes (``decompress_to_words``
+    pallas and stream, ``tsqx.decode_to_words`` at nblk 4), each timed
+    beside one shard in turns; (b) every CUDA device, where the machine
+    has more than one; (c) two processes on the one card."""
     import turbosqueeze_tpu_torch as tsq
     from turbosqueeze_tpu_torch import tsqx
     from turbosqueeze_tpu_torch.parallel import pipeline
@@ -2588,7 +2664,16 @@ def phase11(counts, data, streams):
     packed = tsqx.pack(stream, nblk=4)
     _shards_timed(counts, "tsqx nblk 4", "decode_gang", data, mb,
                   lambda dev: tsqx.decompress(packed, device=dev))
-    del packed
+    view = tsqx.TsqxView(packed)
+    words_calls = [(f"decompress_to_words {impl}", kernel,
+                    lambda dev, impl=impl: pipeline.decompress_to_words(
+                        stream, device=dev, impl=impl)[:2])
+                   for impl, kernel in (("pallas", "decode_tokens"),
+                                        ("stream", "decode_stream"))]
+    words_calls.append(("tsqx.decode_to_words nblk 4", "decode_gang",
+                        lambda dev: tsqx.decode_to_words(view, device=dev)))
+    for name, kernel, call in words_calls:
+        _words_timed(counts, name, kernel, data, mb, call)
     n_cards = torch.cuda.device_count()
     if n_cards > 1:
         for name, call, want in (
@@ -2599,9 +2684,29 @@ def phase11(counts, data, streams):
             check(out == want, f"phase11 {name} over {n_cards} cards")
             say("phase11", spread=name, cards=n_cards, exact=True,
                 MBps=f"{mb / ms * 1e3:.1f}", host_cores=f"{cores:.2f}")
+        for name, kernel, call in words_calls:
+            def run(call=call):
+                out = call(None)
+                torch.cuda.synchronize()  # every card
+                return out
+
+            (words, sizes), ms, cores = _cpu_wall(
+                lambda: _main_path(counts, run))
+            check(len(words.shards) == n_cards,
+                  f"phase11 {name}: {len(words.shards)} shards on "
+                  f"{n_cards} cards")
+            check(sorted(sh.device.index for sh in words.shards)
+                  == list(range(n_cards)), f"phase11 {name}: shard devices")
+            _words_exact(words, sizes, _blocks_of(data, sizes),
+                         f"phase11 {name} over {n_cards} cards")
+            del words
+            say("phase11", spread=name, cards=n_cards, exact=True,
+                words_on_card=True, MBps=f"{mb / ms * 1e3:.1f}",
+                host_cores=f"{cores:.2f}")
     else:
         say("phase11", spread="every CUDA device", run=False,
             reason=f"{n_cards} CUDA device on this machine")
+    del words_calls, view, packed
     _two_processes(data, stream, mb)
 
 

@@ -459,11 +459,12 @@ def test_decompress_to_words_on_the_card(native, impl):
     data = synthetic_text((1 << 22) + 90_000, seed=116)
     stream = native.compress(data, True, level=1)
     PT.launches = 0
-    words, sizes, hdr = pipeline.decompress_to_words(stream, device="cuda",
-                                                     impl=impl,
-                                                     window_blocks=1)
+    result, sizes, hdr = pipeline.decompress_to_words(
+        stream, device="cuda:0", impl=impl, window_blocks=1)
+    [shard] = result.shards
+    words = shard.data
     assert words.device.type == "cuda" and hdr.n_blocks == 2
-    assert tuple(words.shape) == (2, PT.OUT_ROWS, 128)
+    assert result.shape == tuple(words.shape) == (2, PT.OUT_ROWS, 128)
     assert b"".join(_words_bytes(words, b, 0, n)
                     for b, n in enumerate(sizes)) == data
     assert (PT.launches == 2) == (impl == "pallas")
@@ -822,8 +823,12 @@ def test_tsqx_decodes_on_the_card(native, nblk):
     assert api.decompress(packed) == data
     assert PG.launches >= before + 2
     view = tsqx.TsqxView(packed)
-    words, sizes = tsqx.decode_to_words(view, groups=slice(0, 1))
+    result, sizes = tsqx.decode_to_words(view, device="cuda:0",
+                                         groups=slice(0, 1))
+    [shard] = result.shards
+    words = shard.data
     assert words.device.type == "cuda" and len(sizes) == nblk
+    assert result.shape[0] == nblk and shard.index == slice(0, nblk)
     ref = PG._decode_gang_plain(
         *(torch.from_numpy(a.copy()) for a in (
             view.lit_words[:nblk], view.gang_words[:1], view.gmeta[:1])),
@@ -890,3 +895,26 @@ def test_two_shards_on_one_card(native):
     for nblk in (1, 4):
         assert tsqx.decompress(tsqx.pack(stream, nblk=nblk),
                                device=_TWO) == data
+
+
+@pytest.mark.parametrize("case", ["pallas", "stream", "tsqx"])
+def test_words_shards_on_one_card(native, case):
+    """The device-resident decodes over two shards on cuda:0: the two
+    blocks one a shard (TSQX at nblk 1: one group a shard), each shard's
+    words on the card and equal to the input."""
+    from turbosqueeze_tpu_torch import tsqx
+
+    data = _TSQX_DATA()
+    stream = native.compress(data, True, level=1)
+    if case == "tsqx":
+        words, sizes = tsqx.decode_to_words(
+            tsqx.TsqxView(tsqx.pack(stream, nblk=1)), device=_TWO)
+    else:
+        words, sizes, _ = pipeline.decompress_to_words(stream, device=_TWO,
+                                                       impl=case)
+    assert words.shape == (2, PT.OUT_ROWS, 128) and len(sizes) == 2
+    assert [sh.index for sh in words.shards] == [slice(0, 1), slice(1, 2)]
+    assert all(sh.data.device == torch.device("cuda", 0)
+               for sh in words.shards)
+    assert b"".join(_words_bytes(sh.data, 0, 0, n)
+                    for sh, n in zip(words.shards, sizes)) == data

@@ -155,8 +155,11 @@ def test_decompress_to_words_matches_jax(native, impl):
     ref, rsizes, rhdr = ref_pipeline.decompress_to_words(
         stream, ref_mesh.block_mesh(jax.devices()[:1]), impl=impl)
     ref = np.asarray(ref)
+    assert words.shape == ref.shape == (1, PT.OUT_ROWS, 128)
+    [shard] = words.shards
+    assert shard.index == slice(0, 1) and shard.device == torch.device("cpu")
+    words = shard.data
     assert words.dtype == torch.int32 and tuple(words.shape) == ref.shape
-    assert tuple(words.shape) == (1, PT.OUT_ROWS, 128)
     assert sizes == rsizes == [len(data)]
     # the port's header is its own class, with the same fields
     assert (hdr.n_blocks, hdr.total_size) == (rhdr.n_blocks,
@@ -173,14 +176,17 @@ def test_decompress_to_words_windows_fill_one_tensor(native):
     stream = native.compress(data, True, level=1)
     words, sizes, hdr = pipeline.decompress_to_words(stream, device="cpu",
                                                      window_blocks=1)
-    assert tuple(words.shape) == (2, PT.OUT_ROWS, 128)
+    [shard] = words.shards
+    assert words.shape == tuple(shard.data.shape) == (2, PT.OUT_ROWS, 128)
+    assert shard.index == slice(0, 2)
     assert sizes == [4 * MiB, 20_000] and hdr.n_blocks == 2
-    assert b"".join(PT.words_to_bytes(words[b], n)
+    assert b"".join(PT.words_to_bytes(shard.data[b], n)
                     for b, n in enumerate(sizes)) == data
     words, sizes, hdr = pipeline.decompress_to_words(
         native.compress(b"", True), device="cpu")
-    assert tuple(words.shape) == (1, PT.OUT_ROWS, 128) and sizes == []
-    assert not words.any()
+    [shard] = words.shards
+    assert words.shape == tuple(shard.data.shape) == (1, PT.OUT_ROWS, 128)
+    assert sizes == [] and not shard.data.any()
 
 
 @pytest.mark.parametrize("impl", ["pallas", "xla"])

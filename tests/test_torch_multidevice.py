@@ -120,11 +120,25 @@ def test_tsqx_over_three_shards(stream, nblk):
 
 
 def test_one_device_entry_points_refuse_several(stream):
-    with pytest.raises(ValueError, match="one device"):
-        PP.decompress_to_words(stream, device=THREE)
+    """The device-resident decodes, once limited to one device, give one
+    shard a device: three devices, three shards of the padded rows, each
+    block equal to the input (the JAX package's geometry:
+    ``tests/test_torch_sharded_words.py``); a device list that mixes the
+    CPU and CUDA still raises."""
+    words, sizes, _ = PP.decompress_to_words(stream, device=THREE)
+    assert words.shape[0] == 3 and len(words.shards) == 3
+    assert [sh.index for sh in words.shards] == [
+        slice(0, 1), slice(1, 2), slice(2, 3)]
+    got = b"".join(sh.data.numpy().reshape(-1).view("u1")[:n].tobytes()
+                   for sh, n in zip(words.shards, sizes))
+    assert got == DATA
     view = tsqx.TsqxView(tsqx.pack(stream, nblk=4))
-    with pytest.raises(ValueError, match="one device"):
-        tsqx.decode_to_words(view, device=["cpu", "cpu"])
+    words, sizes = tsqx.decode_to_words(view, device=["cpu", "cpu"])
+    assert words.shape[0] == 8 and sizes == view.sizes + [0] * 5
+    assert [sh.index for sh in words.shards] == [slice(0, 4), slice(4, 8)]
+    assert not words.shards[1].data.any()
+    with pytest.raises(ValueError, match="mix"):
+        PP.decompress_to_words(stream, device=["cpu", "cuda:0"])
 
 
 def test_cli_takes_a_device_list(tmp_path, monkeypatch):

@@ -5,7 +5,11 @@ container of ``test_torch_multidevice.py`` through ``decompress`` (gang,
 xla: rank 0 gets the input, rank 1 ``b""``), ``decompress_to_file`` (each
 rank writes its own blocks), ``compress(level=1)`` (``native.compress``'s
 bytes on both ranks), TSQX at nblk 1 and 4, ranks that disagree on
-``window_blocks`` (both raise ``ValueError``) and the host-0 hop alone.
+``window_blocks`` (both raise ``ValueError``, in ``decompress`` and in
+``decompress_to_words``) and the host-0 hop alone; and the five short
+blocks of ``test_torch_sharded_words.py`` through ``decompress_to_words``
+(pallas, stream) and ``tsqx.decode_to_words`` (nblk 1 and 2), each rank
+holding exactly its own shards of the padded rows.
 Each rank runs under a timeout and is killed when it expires. Tolerance:
 equal bytes (the workers compare).
 """
@@ -20,11 +24,13 @@ from pathlib import Path
 import pytest
 
 from test_torch_host_copies import port_core
+from test_torch_sharded_words import BLOCKS, STREAM
 from turbosqueeze_tpu_torch.utils.corpus import synthetic_text
 
 REPO = Path(__file__).resolve().parent.parent
 OPS = ("decompress:gang", "decompress:xla", "file:gang", "compress:1",
-       "tsqx:1", "tsqx:4", "mismatch", "hop")
+       "tsqx:1", "tsqx:4", "mismatch", "hop", "words:pallas", "words:stream",
+       "tsqx_words:1", "tsqx_words:2", "mismatch:words")
 
 
 def _free_port() -> int:
@@ -42,6 +48,8 @@ def records(tmp_path_factory):
     (tmp / "input.bin").write_bytes(data)
     (tmp / "input.tsq").write_bytes(port_core().compress(data, True,
                                                          level=1))
+    (tmp / "words.tsq").write_bytes(STREAM)
+    (tmp / "words.bin").write_bytes(b"".join(BLOCKS))
     coordinator = f"127.0.0.1:{_free_port()}"
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     procs = [subprocess.Popen(

@@ -81,6 +81,9 @@ def test_decode_to_words_equals_the_jax_decode():
                                 mesh=RM.block_mesh(jax.devices()[:1]))
     pw, ps = PX.decode_to_words(view, device="cpu")
     assert ps == list(rs) == [len(data), 0]
+    [shard] = pw.shards
+    assert pw.shape == np.shape(rw) and shard.index == slice(0, 2)
+    pw = shard.data
     assert pw.dtype == torch.int32 and tuple(pw.shape) == np.shape(rw)
     rw = np.asarray(rw)
     for b, size in enumerate(ps):

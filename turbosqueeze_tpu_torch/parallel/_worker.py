@@ -4,11 +4,12 @@
         DIR [--device D[,D...]] [--ops OP[,OP...]] [--reps N] [--window N]
 
 ``DIR`` holds ``input.bin`` (the bytes) and ``input.tsq`` (their level-1
-container from ``native.compress``). Every rank joins the gloo process
-group at ``COORDINATOR`` (``host:port``), then runs each op ``--reps`` times
-(default 1) through the public entry points on ``--device`` (default:
-every CUDA device; ``--window`` sets the decode ops' ``window_blocks``)
-and checks what it gets:
+container from ``native.compress``), and for the words ops ``words.tsq``,
+any container, and ``words.bin``, its bytes. Every rank joins the gloo
+process group at ``COORDINATOR`` (``host:port``), then runs each op
+``--reps`` times (default 1) through the public entry points on
+``--device`` (default: every CUDA device; ``--window`` sets the decode
+ops' ``window_blocks``) and checks what it gets:
 
   * ``decompress:IMPL``: ``pipeline.decompress`` gives the input on rank 0
     and ``b""`` on the others;
@@ -18,8 +19,16 @@ and checks what it gets:
     bytes on every rank (``input.tsq`` at level 1);
   * ``tsqx:NBLK``: ``tsqx.decompress`` of ``tsqx.pack(input.tsq, NBLK)``
     gives the input on rank 0 and ``b""`` on the others;
+  * ``words:IMPL``: ``pipeline.decompress_to_words`` of ``words.tsq``, and
+    ``tsqx_words:NBLK``: ``tsqx.decode_to_words`` of ``tsqx.pack(words.tsq,
+    NBLK)``: the global shape is the reference's padded batch over every
+    device of every rank, this rank holds exactly its own shards' rows,
+    each on its device, every real block in them equals its bytes in
+    ``words.bin`` and every padding row is zero; the timed call
+    ends when every shard's device has finished;
   * ``mismatch``: ranks pass different ``window_blocks`` to ``decompress``
-    and each must raise ``ValueError``;
+    (``mismatch:words``: to ``decompress_to_words``) and each must raise
+    ``ValueError``;
   * ``hop``: the host-0 hop alone (``pipeline._to_host0``) on 32 MiB a
     rank of host words.
 
@@ -41,6 +50,7 @@ import numpy as np
 import torch
 
 from .. import tsqx
+from ..format import scan_block_table
 from ..runtime import native
 from . import mesh, pipeline
 
@@ -74,6 +84,51 @@ def _hop(rank: int, world: int) -> float:
     return (world - 1) * (per << 22) / statistics.median(times[1:]) / 1e6
 
 
+def _synced(result):
+    """A words op's result, once every CUDA shard of it has finished."""
+    for sh in result[0].shards:
+        if sh.device.type == "cuda":
+            torch.cuda.synchronize(sh.device)
+    return result
+
+
+def _words_ok(result, blocks, per_item: int, n_items: int, devices,
+              world: int, rank: int) -> bool:
+    """Whether a words op's (BlockShards, sizes) holds the reference's
+    geometry for ``n_items`` blocks (TSQX: groups of ``per_item`` blocks)
+    over ``devices`` in each of ``world`` ranks, this rank's shards
+    exactly, each on its device, every real block equal to ``blocks`` and
+    every padding row zero."""
+    words, sizes = result
+    n_shards = len(devices) * world
+    k = max(-(-n_items // n_shards), 1) * per_item
+    first = rank * len(devices)
+    if (words.shape[0] != k * n_shards
+            or [sh.index for sh in words.shards]
+            != [slice(s * k, (s + 1) * k)
+                for s in range(first, first + len(devices))]
+            or [sh.device for sh in words.shards] != devices
+            or list(sizes[:len(blocks)]) != [len(b) for b in blocks]
+            or any(sizes[len(blocks):])):
+        return False
+    for sh in words.shards:
+        host = sh.data.cpu().numpy().reshape(sh.data.shape[0], -1).view("u1")
+        for i, row in enumerate(host):
+            b = sh.index.start + i
+            if (row[:len(blocks[b])].tobytes() != blocks[b] if b < len(blocks)
+                    else row.any()):
+                return False
+    return True
+
+
+def _container_blocks(stream: bytes, raw: bytes) -> list:
+    """Each block's bytes of ``raw``, the container's decoded bytes, at
+    the sizes its blocks declare."""
+    offs = np.cumsum([0] + pipeline._declared_sizes(
+        stream, scan_block_table(stream)[1])).tolist()
+    return [raw[a:b] for a, b in zip(offs, offs[1:])]
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("coordinator")
@@ -94,10 +149,19 @@ def main(argv=None) -> int:
     stream = (a.dir / "input.tsq").read_bytes()
     lead = a.rank == 0
     want = data if lead else b""
+    words_stream = words_blocks = devices = None
+    if any(op.startswith(("words", "tsqx_words", "mismatch:words"))
+           for op in a.ops.split(",")):
+        words_stream = (a.dir / "words.tsq").read_bytes()
+        words_blocks = _container_blocks(
+            words_stream, (a.dir / "words.bin").read_bytes())
+        devices = mesh.block_devices(a.device)
     for op in a.ops.split(","):
         kind, _, arg = op.partition(":")
         out_path = a.dir / f"out.{arg}"
-        packed = tsqx.pack(stream, nblk=int(arg)) if kind == "tsqx" else None
+        packed = (tsqx.pack(stream, nblk=int(arg)) if kind == "tsqx" else
+                  tsqx.pack(words_stream, nblk=int(arg))
+                  if kind == "tsqx_words" else None)
         for rep in range(a.reps):
             rec = {"op": op, "rank": a.rank, "rep": rep}
             if kind == "decompress":
@@ -120,10 +184,25 @@ def main(argv=None) -> int:
                 out, ms, cores = _timed(lambda: tsqx.decompress(
                     packed, device=a.device))
                 ok = out == want
+            elif kind == "words":
+                out, ms, cores = _timed(lambda: _synced(
+                    pipeline.decompress_to_words(
+                        words_stream, device=a.device, impl=arg,
+                        window_blocks=a.window)))
+                ok = _words_ok(out[:2], words_blocks, 1, len(words_blocks),
+                               devices, a.world, a.rank)
+            elif kind == "tsqx_words":
+                view = tsqx.TsqxView(packed)
+                out, ms, cores = _timed(lambda: _synced(
+                    tsqx.decode_to_words(view, device=a.device)))
+                ok = _words_ok(out, words_blocks, view.nblk, view.n_groups,
+                               devices, a.world, a.rank)
             elif kind == "mismatch":
+                call = (pipeline.decompress_to_words if arg == "words"
+                        else pipeline.decompress)
                 try:
-                    pipeline.decompress(stream, device=a.device,
-                                        window_blocks=1 + a.rank)
+                    call(words_stream if arg == "words" else stream,
+                         device=a.device, window_blocks=1 + a.rank)
                     ok = False
                 except ValueError:
                     ok = True

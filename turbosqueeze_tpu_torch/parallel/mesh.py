@@ -6,14 +6,19 @@ blocks shard over every local device of every process. A call's window of
 ``n`` blocks splits into ``S`` contiguous shards, ``S`` being the local
 device count times the process count; process ``r`` owns shards
 ``[r * L, (r + 1) * L)`` of them, one on each of its ``L`` devices
-(``shard_bounds``). Processes join through ``init_distributed`` over
-``torch.distributed`` on gloo: every byte that crosses a process is host
-data, as the reference's coordination service and ``process_allgather``
-carry host data, and gloo, unlike NCCL, takes two ranks on one card.
+(``shard_bounds``). The device-resident decodes pad their rows to a
+whole number of equal shards instead (``padded_shards``) and return each
+process's shards as a ``BlockShards``, the counterpart of the
+reference's block-sharded ``jax.Array``. Processes join through
+``init_distributed`` over ``torch.distributed`` on gloo: every byte that
+crosses a process is host data, as the reference's coordination service
+and ``process_allgather`` carry host data, and gloo, unlike NCCL, takes
+two ranks on one card.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from datetime import timedelta
 from typing import List, Optional, Tuple
 
@@ -23,11 +28,6 @@ import torch.distributed as dist
 # a peer that fails or never arrives raises on the others after this long,
 # where it would otherwise hang them
 DIST_TIMEOUT = timedelta(seconds=300)
-
-
-def _every_cuda(device) -> bool:
-    return device is None or (not isinstance(device, (list, tuple))
-                              and str(device) == "cuda")
 
 
 def _device(device) -> torch.device:
@@ -50,7 +50,8 @@ def block_devices(device=None) -> List[torch.device]:
     in order, repeats allowed (``["cuda:0", "cuda:0"]`` is two shards on
     one card); a sequence that mixes the CPU and CUDA raises ``ValueError``.
     """
-    if _every_cuda(device):
+    if device is None or (not isinstance(device, (list, tuple))
+                          and str(device) == "cuda"):
         n = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if n == 0:
             raise RuntimeError("no CUDA device: pass device='cpu' to run "
@@ -65,21 +66,6 @@ def block_devices(device=None) -> List[torch.device]:
         raise ValueError(f"devices mix {sorted(types)}: a call runs all of "
                          f"its shards on one kind of device")
     return [_device(d) for d in device]
-
-
-def one_device(device, what: str) -> torch.device:
-    """The device of an entry point that leaves one tensor on one device
-    (``what`` names it): ``device`` as in ``block_devices``, ``None`` or
-    ``"cuda"`` meaning the first CUDA device; several devices, or a run of
-    several processes, raise ``ValueError``."""
-    if process_count() > 1:
-        raise ValueError(f"{what} leaves one tensor on one device, in one "
-                         f"process; this run has {process_count()}")
-    devs = block_devices(device)
-    if len(devs) > 1 and not _every_cuda(device):
-        raise ValueError(f"{what} leaves one tensor on one device: pass one "
-                         f"device, not {len(devs)}")
-    return devs[0]
 
 
 def init_distributed(coordinator: Optional[str] = None,
@@ -121,3 +107,40 @@ def pad_batch(n: int, multiple: int) -> int:
     """Blocks rounded up to a whole number of groups; pad with no-op
     blocks."""
     return -(-n // multiple) * multiple
+
+
+@dataclass(frozen=True)
+class Shard:
+    """One device's shard of a ``BlockShards``: global rows ``index`` of
+    the result (a ``slice``, as ``jax.Array.addressable_shards[i].index[0]``
+    gives), held in ``data`` on ``device``."""
+    index: slice
+    device: torch.device
+    data: torch.Tensor
+
+
+@dataclass(frozen=True)
+class BlockShards:
+    """A result sharded over the leading (block) axis of every local device
+    of every process: the torch counterpart of a ``jax.Array`` under the
+    reference's 1-D ``blocks`` sharding. ``shape`` is the global shape;
+    ``shards`` holds this process's shards in global row order, one a
+    local device (one shard covering every row on a single device in a
+    single process)."""
+    shape: Tuple[int, ...]
+    shards: Tuple[Shard, ...]
+
+
+def padded_shards(n: int, n_local: int) -> Tuple[int, List[slice]]:
+    """The reference's padded batch of ``n`` rows over ``n_local`` devices
+    in each process: ``(B, rows)``. With ``S = n_local * process_count()``
+    shards of ``k = max(ceil(n / S), 1)`` rows each, ``B = k * S``
+    (``pad_batch(n, S)``, at least ``S``); shard s holds global rows
+    ``[s * k, (s + 1) * k)``, and ``rows`` are this process's shards
+    ``[r * n_local, (r + 1) * n_local)``, one a local device in order.
+    Rows past ``n`` are no-op padding."""
+    n_shards = n_local * process_count()
+    B = pad_batch(max(n, 1), n_shards)
+    k, first = B // n_shards, process_index() * n_local
+    return B, [slice(s * k, (s + 1) * k)
+               for s in range(first, first + n_local)]

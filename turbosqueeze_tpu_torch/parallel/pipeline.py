@@ -41,7 +41,9 @@ several processes (``mesh.init_distributed``, gloo) a decode's blocks meet
 on rank 0 (``_to_host0``; the other ranks return ``b""``),
 ``decompress_to_file`` writes each rank's blocks into the one file, and
 ``compress`` hands every payload to every rank, so each returns the whole
-container.
+container. ``decompress_to_words`` instead pads the blocks to a whole
+number of equal shards, the reference's geometry, and leaves each shard's
+words on its device (``mesh.BlockShards``).
 
 Encode: the host packs each window's bytes into pinned memory and copies
 them to the device, where the level picks the route: level 0 runs the
@@ -587,30 +589,46 @@ def decompress_to_file(stream: bytes, out_path, device=None,
 
 def decompress_to_words(stream: bytes, device=None, impl: str = "pallas",
                         window_blocks: int = 0):
-    """Decode a ``.tsq`` container and leave the words on the device.
+    """Decode a ``.tsq`` container and leave the words on the devices.
 
-    Returns (words, sizes, header): ``words`` is (B, OUT_ROWS, 128) int32
-    on ``device`` with B = max(n_blocks, 1); row b holds block b's decoded
-    bytes as little-endian words, its first ``sizes[b]`` bytes defined.
-    ``device``: one device (default: the first CUDA device); several
-    devices or processes raise ``ValueError``, since the result is one
-    tensor on one device. impl: ``"pallas"`` (host tokenize + token-chunk
-    kernel) or ``"stream"`` (the raw-payload stream kernel). Windows of
-    ``window_blocks`` (default ``WINDOW_BLOCKS``) decode into slices of
-    the one output tensor.
+    Returns (words, sizes, header). ``words`` is a ``mesh.BlockShards`` of
+    global shape (B, OUT_ROWS, 128) int32, sharded over every device of
+    ``device`` in every process as the reference's ``jax.Array`` is
+    (``mesh.padded_shards``): B is the block count padded to a whole number
+    of equal shards, at least one row a shard, and this process holds its
+    own shards, each an int32 tensor on its device. Global row b holds
+    block b's decoded bytes as little-endian words, its first ``sizes[b]``
+    bytes defined; padding rows are zero. ``sizes`` is the container's
+    declared block sizes, unpadded.
+
+    device: as in ``decompress`` (default every CUDA device; a CUDA device
+    with no GPU raises). impl: ``"pallas"`` (host tokenize + token-chunk
+    kernel) or ``"stream"`` (the raw-payload stream kernel). Each shard
+    decodes its blocks in windows of ``window_blocks`` (default
+    ``WINDOW_BLOCKS``) into slices of its tensor, every local shard's
+    window launched before the next window of any; each process tokenizes
+    and packs only its own shards' blocks, and no bytes cross a process.
+    Ranks that disagree on their device count, the block count or
+    ``window_blocks`` raise ``ValueError`` on every rank.
     """
     _check_impl(impl, ("pallas", "stream"))
-    dev = mesh_mod.one_device(device, "decompress_to_words")
-    window_blocks = window_blocks if window_blocks > 0 else WINDOW_BLOCKS
     hdr, table = scan_block_table(stream)
-    words = torch.zeros((max(len(table), 1), DK.OUT_ROWS, DK.LANES),
-                        dtype=torch.int32, device=dev)
+    spread = _Spread(device, len(table), window_blocks, WINDOW_BLOCKS)
+    window = window_blocks if window_blocks > 0 else WINDOW_BLOCKS
+    B, rows = mesh_mod.padded_shards(len(table), len(spread.devices))
+    shards = [mesh_mod.Shard(sl, dev, torch.zeros(
+        (sl.stop - sl.start, DK.OUT_ROWS, DK.LANES), dtype=torch.int32,
+        device=dev)) for sl, dev in zip(rows, spread.devices)]
     with ThreadPoolExecutor() as pool:
-        for lo in range(0, len(table), window_blocks):
-            win = table[lo:lo + window_blocks]
-            words[lo:lo + len(win)] = _WINDOW_ROUTES[impl](stream, win, dev,
-                                                           pool)[0]
-    return words, _declared_sizes(stream, table), hdr
+        for lo in range(0, B // spread.n_shards, window):
+            for sh in shards:
+                first = sh.index.start + lo
+                win = table[first:min(first + window, sh.index.stop)]
+                if win:  # padding rows launch nothing
+                    sh.data[lo:lo + len(win)] = _WINDOW_ROUTES[impl](
+                        stream, win, sh.device, pool)[0]
+    return (mesh_mod.BlockShards((B, DK.OUT_ROWS, DK.LANES), tuple(shards)),
+            _declared_sizes(stream, table), hdr)
 
 
 # --- compress ----------------------------------------------------------------

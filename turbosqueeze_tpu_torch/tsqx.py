@@ -50,6 +50,7 @@ import torch
 from .format import BLOCK_SZ, FormatError, scan_block_table
 from .kernels import decode_gang as DGK
 from .kernels.decode_bulk import EMPTY_PREP, rows_for_bytes
+from .kernels.decode_tokens import OUT_ROWS
 from .parallel import mesh as mesh_mod
 from .parallel.pipeline import (GANG_SRECS, _lookahead, _Pending, _Shard,
                                 _Spread, _to_host0)
@@ -226,20 +227,40 @@ def _decode_groups(view: TsqxView, dev: torch.device, lo: int, hi: int):
 
 
 def decode_to_words(view: TsqxView, device=None, groups: slice = None):
-    """Decode (a slice of) a TSQX container's groups with the gang kernel;
-    returns (words, sizes), words (B, OUT_ROWS, 128) int32 left on the
-    device, B = nblk times the groups, row b holding block b's decoded
-    bytes as little-endian words, its first ``sizes[b]`` bytes defined
-    (0 for a padding block). ``device``: one device (default: the first
-    CUDA device; raises where there is none), or ``"cpu"`` for the
-    kernel's plain version; several devices or processes raise
-    ``ValueError``, since the result is one tensor on one device.
-    ``groups`` picks a contiguous range of groups."""
-    dev = mesh_mod.one_device(device, "tsqx.decode_to_words")
+    """Decode (a slice of) a TSQX container's groups with the gang kernel
+    and leave the words on the devices; returns (words, sizes).
+
+    ``groups`` picks a contiguous range ``[lo, hi)`` of groups (default
+    all; ``hi`` is clamped to the group count). It pads to a whole number
+    of equal shards over every device of ``device`` in every process with
+    all-zero groups, kernel no-ops, as the reference pads it
+    (``mesh.padded_shards``, in groups). ``words`` is a
+    ``mesh.BlockShards`` of global shape (B, OUT_ROWS, 128) int32, B =
+    nblk times the padded groups; this process holds its own shards, each
+    decoded through the gang kernel on its device (the kernel's plain
+    version on the CPU), every shard launched before any is waited for.
+    Row b holds block ``lo * nblk + b``'s decoded bytes as little-endian
+    words, its first ``sizes[b]`` bytes defined; ``sizes`` covers every
+    row, 0 for a padding block. ``device`` as in ``decompress`` (default
+    every CUDA device; raises where there is none)."""
     g = groups if groups is not None else slice(0, view.n_groups)
     lo = g.start or 0
     hi = min(g.stop if g.stop is not None else view.n_groups, view.n_groups)
-    return _decode_groups(view, dev, lo, hi)
+    spread = _Spread(device, max(hi - lo, 0), 0, BATCH_GROUPS)
+    n_pad, rows = mesh_mod.padded_shards(hi - lo, len(spread.devices))
+    nblk, shards = view.nblk, []
+    for sl, dev in zip(rows, spread.devices):
+        a, b = lo + sl.start, min(lo + sl.stop, hi)
+        data = torch.zeros(((sl.stop - sl.start) * nblk, OUT_ROWS, LANES),
+                           dtype=torch.int32, device=dev)
+        if a < b:  # padding groups launch nothing
+            data[:(b - a) * nblk] = _decode_groups(view, dev, a, b)[0]
+        shards.append(mesh_mod.Shard(slice(sl.start * nblk, sl.stop * nblk),
+                                     dev, data))
+    sizes = [view.sizes[b] if b < view.n_blocks else 0
+             for b in range(lo * nblk, (lo + n_pad) * nblk)]
+    return mesh_mod.BlockShards((n_pad * nblk, OUT_ROWS, LANES),
+                                tuple(shards)), sizes
 
 
 def decompress(data, device=None) -> bytes:
