@@ -110,7 +110,24 @@ Phases:
      ``compress(level=1)``, TSQX at nblk 4 and the three words routes on
      the same input, checked by the workers (each rank holds exactly its
      own shards), each rank's wall and host cores, the host-0 hop's MB/s,
-     and the gang decode again in windows of 32 blocks.
+     and the gang decode again in windows of 32 blocks;
+ 12. scale: the JAX package's format, ratio and mixed-boundary contracts
+     on 1 GiB (256 full blocks, ``tests/gang_streams.py::scale_blocks``
+     made from ``--seed``, default 1: seeded splices of the real files,
+     synthetic pools, zeros, random bytes, byte runs and re-quotes across
+     64 KiB window edges and block boundaries, with the eight pure class
+     blocks one in each 32-block window): compress at level 0, level 1
+     through ``emit_impl`` ``scan``, ``bulk`` and ``flat``, and level 2,
+     each container byte-identical to ``native.compress`` (else the first
+     differing block, window and payload byte), sizes in the reference's
+     order, each call's peak device memory; the level-1 container through
+     every ``decompress`` route, ``decompress_to_file`` (``gang``), both
+     ``decompress_to_words`` routes and TSQX at nblk 4 (``decompress``
+     and ``decode_to_words``), levels 0 and 2 through ``auto``, each
+     exactly the input (else the first differing byte, block and
+     window); then every class of ``ratio_sweep_files()``, the real files
+     included, through every compress call, ext on and off, with its four
+     sizes. Each call's MB/s and host cores are printed, not held.
 
 Every kernel is held against its plain version at zero tolerance over the
 bytes the format defines (each block's first ``size`` bytes, or each
@@ -141,6 +158,8 @@ clocks (``TSQ_PAIRS_CLOCKS``) and prints each warp's cycles a batch. With
 (``ROOT/turbosqueeze_tpu_torch/kernels/csrc``, for instance the parent
 commit unpacked by ``git archive``) run there too: each held to this
 tree's outputs and timed in turns with it.
+``python3 chip_smoke.py --scale-only [--seed N]`` builds the kernels and
+runs only phase 12, and checks that it launched every kernel.
 """
 
 from __future__ import annotations
@@ -2710,6 +2729,186 @@ def phase11(counts, data, streams):
     _two_processes(data, stream, mb)
 
 
+# --- phase 12: the contracts at scale ---------------------------------------
+
+SCALE_BLOCKS = 256  # 1 GiB: the size at which the reference's wrap bug showed
+_COMPRESS_CALLS = ((0, "scan"), (1, "scan"), (1, "bulk"), (1, "flat"),
+                   (2, "scan"))
+_DECODE_ROUTES = ("gang", "stream", "pallas", "bulk", "bulk2", "bulkn",
+                  "xla")
+
+
+def _first_diff(a: bytes, b: bytes) -> int:
+    """The first offset at which ``a`` and ``b`` differ (the shorter one's
+    length where it is a prefix of the other)."""
+    n = min(len(a), len(b))
+    ne = np.flatnonzero(np.frombuffer(a, np.uint8, n)
+                        != np.frombuffer(b, np.uint8, n))
+    return int(ne[0]) if ne.size else n
+
+
+def _same_bytes(got: bytes, want: bytes, what: str) -> None:
+    """Decoded bytes against the input; on a difference, the first byte,
+    its 4 MiB block, the block's 32-block window and its offset there."""
+    if got != want:
+        off = _first_diff(got, want)
+        raise SmokeFailure(
+            f"{what}: differs from the input at byte {off} (block "
+            f"{off >> 22}, window {(off >> 22) // 32}, offset "
+            f"{off & (4 * MiB - 1)}; lengths {len(got)} / {len(want)})")
+
+
+def _same_container(got: bytes, want: bytes, what: str) -> None:
+    """A container against ``native.compress``'s; on a difference, the
+    first block whose payload differs, its window and the payload byte."""
+    if got == want:
+        return
+    from turbosqueeze_tpu_torch.format import iter_container
+
+    for (b, p, e), (_, q, f) in zip(iter_container(got),
+                                    iter_container(want)):
+        if p != q or e != f:
+            raise SmokeFailure(
+                f"{what}: block {b} (window {b // 32}) payload differs from "
+                f"native.compress's at byte {_first_diff(p, q)} "
+                f"(payloads {len(p)} / {len(q)} bytes, ext {e} / {f})")
+    raise SmokeFailure(f"{what}: container differs from native.compress's "
+                       f"outside the payloads ({len(got)} / {len(want)})")
+
+
+def _scale_compress(counts, data, dev) -> dict:
+    """``data`` through every compress call on the card, each container
+    byte-identical to ``native.compress``'s, the sizes in the reference's
+    order. Returns the native containers by level."""
+    from turbosqueeze_tpu_torch.parallel import pipeline
+    from turbosqueeze_tpu_torch.runtime import native
+
+    mb = len(data) / 1e6
+    want = {}
+    for level in (0, 1, 2):
+        want[level], ms, cores = _cpu_wall(
+            lambda: native.compress(data, True, level=level))
+        say("scale", native_compress=level, MBps=f"{mb / ms * 1e3:.1f}",
+            host_cores=f"{cores:.2f}")
+    for level, emit in _COMPRESS_CALLS:
+        torch.cuda.reset_peak_memory_stats()
+        got, ms, cores = _cpu_wall(lambda: _main_path(
+            counts, lambda: pipeline.compress(data, True, level=level,
+                                              device=dev, emit_impl=emit)))
+        _same_container(got, want[level], f"scale compress level {level} "
+                        f"{emit}")
+        say("scale", compress=emit, level=level, input_mb=f"{mb:.1f}",
+            ratio=f"{len(got) / len(data):.4f}", exact=True,
+            MBps=f"{mb / ms * 1e3:.1f}", host_cores=f"{cores:.2f}",
+            peak_GiB=f"{torch.cuda.max_memory_allocated() / (1 << 30):.2f}")
+        del got
+    check(len(want[1]) <= len(want[0]) and len(want[2]) <= len(want[1]),
+          f"scale: sizes out of order {[len(want[v]) for v in range(3)]}")
+    return want
+
+
+def _scale_decode(counts, data, streams, dev) -> None:
+    """The level-1 container through every decode route, the file route,
+    both words routes and TSQX at nblk 4; levels 0 and 2 through
+    ``auto``; every output exactly the input."""
+    import tempfile
+
+    from turbosqueeze_tpu_torch import tsqx
+    from turbosqueeze_tpu_torch.parallel import pipeline
+
+    mb, stream = len(data) / 1e6, streams[1]
+
+    def timed(name, call, **kv):
+        out, ms, cores = _cpu_wall(lambda: _main_path(counts, call))
+        say("scale", decode=name, exact=True, MBps=f"{mb / ms * 1e3:.1f}",
+            host_cores=f"{cores:.2f}", **kv)
+        return out
+
+    for impl in _DECODE_ROUTES:
+        _same_bytes(timed(impl, lambda: pipeline.decompress(
+            stream, device=dev, impl=impl)), data, f"scale decode {impl}")
+    for level in (0, 2):
+        _same_bytes(timed("auto", lambda: pipeline.decompress(
+            streams[level], device=dev), level=level), data,
+            f"scale decode auto, level {level}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "out"
+        n = timed("decompress_to_file gang", lambda: pipeline.
+                  decompress_to_file(stream, out, device=dev, impl="gang"))
+        check(n == len(data), f"scale decompress_to_file: size {n}")
+        _same_bytes(out.read_bytes(), data, "scale decompress_to_file")
+    blocks = _blocks_of(data, [4 * MiB] * -(-len(data) >> 22))
+    for impl in ("pallas", "stream"):
+        words, sizes, _ = timed(f"decompress_to_words {impl}", lambda:
+                                _synced(pipeline.decompress_to_words(
+                                    stream, device=dev, impl=impl)))
+        _words_exact(words, sizes, blocks, f"scale decompress_to_words "
+                     f"{impl}", device=dev)
+        del words
+    t0 = time.perf_counter()
+    packed = tsqx.pack(stream, nblk=4)
+    say("scale", tsqx_pack_nblk=4, s=f"{time.perf_counter() - t0:.1f}",
+        tsqx_mb=f"{len(packed) / 1e6:.1f}")
+    _same_bytes(timed("tsqx nblk 4", lambda: tsqx.decompress(
+        packed, device=dev)), data, "scale tsqx.decompress")
+    words, sizes = timed("tsqx.decode_to_words nblk 4", lambda: _synced(
+        tsqx.decode_to_words(tsqx.TsqxView(packed), device=dev)))
+    _words_exact(words, sizes, blocks, "scale tsqx.decode_to_words",
+                 device=dev)
+
+
+def _synced(r):
+    """``r`` once the card has finished the work that made it."""
+    torch.cuda.synchronize()
+    return r
+
+
+def _scale_sweep(counts, dev) -> None:
+    """Every class of ``ratio_sweep_files()``, the real files included,
+    through every compress call on the card, ext on and off: each
+    container ``native.compress``'s, the sizes in the reference's order."""
+    from turbosqueeze_tpu_torch.parallel import pipeline
+    from turbosqueeze_tpu_torch.runtime import native
+    from turbosqueeze_tpu_torch.utils.corpus import ratio_sweep_files
+
+    for name, data in ratio_sweep_files().items():
+        for ext in (True, False):
+            want = {level: native.compress(data, ext, level=level)
+                    for level in (0, 1, 2)}
+            for level, emit in _COMPRESS_CALLS:
+                got = _main_path(counts, lambda: pipeline.compress(
+                    data, ext, level=level, device=dev, emit_impl=emit))
+                _same_container(got, want[level], f"sweep {name} ext {ext} "
+                                f"level {level} {emit}")
+            n = [len(want[level]) for level in (0, 1, 2)]
+            check(n[1] <= n[0] and n[2] <= n[1],
+                  f"sweep {name} ext {ext}: sizes out of order {n}")
+            say("scale", sweep=name, ext=int(ext), input=len(data),
+                level0=n[0], level1=n[1], level2=n[2], exact=True)
+
+
+def phase12(counts, seed: int, n_blocks: int = SCALE_BLOCKS, dev=None):
+    """The JAX package's format, ratio and mixed-boundary contracts on
+    every device route, at 1 GiB: ``tests/gang_streams.py::scale_blocks``
+    made from ``seed``, through every compress call (byte-identical to
+    ``native.compress``, sizes in order, peak device memory), the level-1
+    container through every decode, file, words and TSQX route (exactly
+    the input), levels 0 and 2 through ``auto``, then the ratio sweep's
+    classes at full size. ``dev``: the devices of every call (default
+    every CUDA device)."""
+    from gang_streams import scale_blocks
+
+    t0 = time.perf_counter()
+    data = scale_blocks(seed, n_blocks)
+    say("scale", seed=seed, blocks=n_blocks, input_mb=f"{len(data) / 1e6:.1f}",
+        build_s=f"{time.perf_counter() - t0:.1f}")
+    streams = _scale_compress(counts, data, dev)
+    _scale_decode(counts, data, streams, dev)
+    del streams, data
+    _scale_sweep(counts, dev)
+    say("scale", seconds=f"{time.perf_counter() - t0:.1f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", flush=True)
@@ -2732,9 +2931,19 @@ def main() -> int:
         "--bulk-only": _bulk_classes,
         "--decode-only": lambda others: _decode_classes(
             others, _clocks_library() if "--clocks" in sys.argv else None)}
-    mode = next((a for a in sys.argv[1:] if a in only), None)
+    args = sys.argv[1:]
+    seed = int(args[args.index("--seed") + 1]) if "--seed" in args else 1
+    mode = next((a for a in args if a in only), None)
+    if "--scale-only" in args:
+        phase12(counts, seed)
+        check(all(counts.values()),
+              f"a kernel of the scale phase never launched: {counts}")
+        say("done", seconds=f"{time.perf_counter() - t_start:.1f}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if mode:
-        args = sys.argv[1:]
         roots = [a for a in args[args.index("--ab") + 1:]
                  if not a.startswith("--")] if "--ab" in args else []
         only[mode](_ab_libraries(map(Path, roots)) if roots else None)
@@ -2754,6 +2963,8 @@ def main() -> int:
     phase9(errs, counts, timing, data)
     phase10(errs, counts, data, streams)
     phase11(counts, data, streams)
+    del data, streams
+    phase12(counts, seed)
     check(all(counts.values()),
           f"a kernel of the main path never launched: {counts}")
     loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]

@@ -5,7 +5,11 @@ overlap, read their own rows or carry odd segment bounds, the streams on
 which the port deliberately differs from the interpreted Pallas kernel,
 garbage planes; hand-built bulk streams whose records overlap; the
 corrupt containers on which three decode routes differ from the JAX
-routes; and the full blocks of the classes ``chip_smoke.py`` decodes."""
+routes; the full blocks of the classes ``chip_smoke.py`` decodes; and
+the mixed-class inputs (``mixed_case``, ``scale_blocks``) that the fuzz
+tests and ``chip_smoke.py``'s scale phase hold every route to."""
+
+import functools
 
 import numpy as np
 
@@ -367,3 +371,138 @@ def open_slot_blocks():
         p = r.bytes(24)
         out.append(r.bytes(k) + p + r.bytes(38 - k) + p)
     return out
+
+
+def mixed_case(rng, size):
+    """Content with abrupt class switches at random boundaries: the port's
+    copy of ``tests/test_fuzz_roundtrip.py::_mixed_case`` (the same bytes
+    for the same ``np.random.Generator`` state). Pieces of 500-70,000
+    bytes: incompressible, zeros, synthetic text, synthetic binary, or a
+    re-quote of the previous 70,000 bytes."""
+    from turbosqueeze_tpu_torch.utils.corpus import (synthetic_binary,
+                                                     synthetic_text)
+
+    parts = []
+    n = 0
+    while n < size:
+        kind = rng.integers(0, 5)
+        ln = int(rng.integers(500, 70_000))
+        if kind == 0:
+            parts.append(rng.bytes(ln))
+        elif kind == 1:
+            parts.append(bytes(ln))
+        elif kind == 2:
+            parts.append(synthetic_text(ln, seed=int(rng.integers(1e6))))
+        elif kind == 3:
+            parts.append(synthetic_binary(ln, seed=int(rng.integers(1e6))))
+        else:
+            prev = b"".join(parts)[-70_000:] or b"seed"
+            parts.append((prev * 3)[:ln])
+        n += ln
+    return b"".join(parts)[:size]
+
+
+_BLK = 4 << 20
+_EDGE = 1 << 16       # the 64 KiB offset window's edge
+_QUOTE = (64_000, 67_000)  # re-quote distances, either side of MAX_OFFSET
+
+
+def scale_blocks(seed, n_blocks=256, n_pure=8):
+    """``n_blocks`` full 4 MiB blocks of seeded mixed-class content, as one
+    bytes object (256 blocks: 1 GiB, the scale phase's input; about 4 s
+    to build). The recipe, all drawn from ``np.random.default_rng(seed)``:
+
+    - pure blocks: block k of ``class_blocks(n_pure)`` (licenses, pydoc,
+      Python source, bytecode, synthetic text, synthetic binary, zeros,
+      random) goes at a seeded index of the k-th of ``n_pure`` equal runs
+      of blocks (with 256 blocks: one in each 32-block window);
+    - every other block is cut from one continuous splice, so a piece
+      runs on across the boundary between two such blocks. Pieces of
+      500-70,000 bytes, each of one kind: random bytes; zeros; a slice
+      of one of the four real files (``real_files``) at a seeded offset;
+      a slice of a pool of ``synthetic_text(4 MiB, seed=401)`` or
+      ``synthetic_binary(4 MiB, seed=402)`` at a seeded offset; a run of
+      one seeded byte value; or a re-quote: the bytes 64,000-67,000
+      back (either side of the format's largest offset, 65,534), repeated
+      with that period, the piece stretched past the next 64 KiB edge of
+      its block;
+    - the piece that crosses a boundary between two spliced blocks is a
+      byte run or a re-quote, stretched 500-70,000 bytes into the next
+      block.
+    """
+    if not 0 <= n_pure <= n_blocks:
+        raise ValueError(f"n_pure {n_pure} outside [0, {n_blocks}]")
+    rng = np.random.default_rng(seed)
+    pools = _pools()
+    out = np.zeros(n_blocks * _BLK, np.uint8)
+    pure = {}
+    if n_pure:
+        run = n_blocks // n_pure
+        for k, blk in enumerate(class_blocks(n_pure)):
+            pure[k * run + int(rng.integers(run))] = blk
+    for b, blk in pure.items():
+        out[b * _BLK:(b + 1) * _BLK] = np.frombuffer(blk, np.uint8)
+    b = 0
+    while b < n_blocks:
+        if b in pure:
+            b += 1
+            continue
+        stop = b
+        while stop < n_blocks and stop not in pure:
+            stop += 1
+        _splice(rng, out, b * _BLK, stop * _BLK, pools)
+        b = stop
+    return out.tobytes()
+
+
+@functools.lru_cache(maxsize=1)
+def _pools():
+    """The pieces' sources: the four real files, then the synthetic text
+    and binary pools (uint8 arrays, made once a process)."""
+    from turbosqueeze_tpu_torch.utils.corpus import (real_files,
+                                                     synthetic_binary,
+                                                     synthetic_text)
+
+    return [np.frombuffer(b, np.uint8) for b in (
+        *real_files().values(), synthetic_text(_BLK, seed=401),
+        synthetic_binary(_BLK, seed=402))]
+
+
+def _splice(rng, out, pos, end, pools):
+    """Fill ``out[pos:end]`` with the pieces ``scale_blocks`` describes:
+    kind 0 random, 1 zeros, 2 a real file, 3 a synthetic pool, 4 a byte
+    run, 5 a re-quote."""
+    start = pos
+    while pos < end:
+        kind = int(rng.integers(0, 6))
+        ln = int(rng.integers(500, 70_000))
+        edge = (pos // _BLK + 1) * _BLK  # the next block boundary
+        if pos + ln > edge and edge < end:  # this piece crosses it
+            kind = 4 + int(rng.integers(0, 2))
+            ln = edge - pos + int(rng.integers(500, 70_000))
+        if kind == 5:
+            d = int(rng.integers(*_QUOTE))
+            if pos - d < start:
+                kind = 4
+            else:
+                lo = pos % _BLK
+                ln = max(ln, (lo // _EDGE + 1) * _EDGE - lo
+                         + int(rng.integers(1, 4096)))
+        ln = min(ln, end - pos)
+        dst = out[pos:pos + ln]
+        if kind == 0:
+            dst[:] = np.frombuffer(rng.bytes(ln), np.uint8)
+        elif kind == 1:
+            dst[:] = 0
+        elif kind in (2, 3):
+            src = pools[int(rng.integers(0, 4)) if kind == 2
+                        else int(rng.integers(4, 6))]
+            off = int(rng.integers(0, len(src) - ln))
+            dst[:] = src[off:off + ln]
+        elif kind == 4:
+            dst[:] = int(rng.integers(0, 256))
+        else:
+            for k in range(0, ln, d):  # period d: each chunk copies d back
+                n = min(d, ln - k)
+                out[pos + k:pos + k + n] = out[pos + k - d:pos + k - d + n]
+        pos += ln

@@ -177,6 +177,31 @@ def test_real_files_equal():
     assert all(got[k] == want[k] for k in want)
 
 
+@pytest.mark.parametrize("seed", [3, 7, 303])
+def test_incompressible_and_checksum_equal(seed):
+    for size in (0, 1, 5000, 70_001):
+        got = PCORP.incompressible(size, seed)
+        assert got == RCORP.incompressible(size, seed) and len(got) == size
+        assert PCORP.checksum(got) == RCORP.checksum(got)
+    assert PCORP.incompressible(100) == RCORP.incompressible(100)  # seed 7
+
+
+def test_standard_cases_equal():
+    got, want = PCORP.standard_cases(), RCORP.standard_cases()
+    assert len(got) == len(want) == 11
+    assert all(g == w for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("include_real", [True, False])
+def test_ratio_sweep_files_equal(include_real):
+    got = PCORP.ratio_sweep_files(include_real)
+    want = RCORP.ratio_sweep_files(include_real)
+    assert list(got) == list(want)
+    assert len(got) == (9 if include_real else 5)
+    assert all(got[k] == want[k] for k in want)
+    assert [len(v) for v in got.values()][:5] == [MiB] * 4 + [1_000_000]
+
+
 # --- the native binding ------------------------------------------------------
 
 _DATA = (PCORP.synthetic_text(300_000, seed=21) + bytes(50_000)
@@ -288,6 +313,43 @@ def test_native_file_pipeline_equal(cores, tmp_path):
         port.compress_file(str(tmp_path / "missing"), str(tmp_path / "x"))
     assert port.streaming_ok("native")
     assert not any(port.streaming_ok(b) for b in ("auto", "cuda", "oracle"))
+
+
+@pytest.mark.parametrize("level", [0, 1, 2])
+def test_native_array_api_equal(cores, level):
+    """``compress_array`` and ``decompress_array``: numpy uint8 in and out,
+    the JAX binding's bytes, the input back."""
+    port, ref = cores
+    arr = np.frombuffer(_DATA, np.uint8)
+    for ext in (True, False):
+        got = port.compress_array(arr, ext, level=level)
+        want = ref.compress_array(arr, ext, level=level)
+        assert got.dtype == np.uint8 and got.ndim == 1
+        assert np.array_equal(got, want)
+        assert got.tobytes() == port.compress(_DATA, ext, level=level)
+        back = port.decompress_array(got)
+        assert back.dtype == np.uint8 and np.array_equal(back, arr)
+        assert np.array_equal(back, ref.decompress_array(want))
+    empty = port.compress_array(np.zeros(0, np.uint8), level=level)
+    assert np.array_equal(empty, ref.compress_array(np.zeros(0, np.uint8),
+                                                    level=level))
+    assert port.decompress_array(empty).size == 0
+
+
+def test_native_array_api_errors_equal(cores):
+    """A ``FormatError`` of each package on the same bad streams: a cut
+    stream, a wrong magic, a block header past the stream."""
+    port, ref = cores
+    good = port.compress_array(np.frombuffer(_DATA, np.uint8), level=1)
+    bad = [good[:20], np.concatenate([np.frombuffer(b"TSQ2", np.uint8),
+                                      good[4:]]),
+           good[:-1], np.zeros(3, np.uint8)]
+    for arr in bad:
+        with pytest.raises(PF.FormatError) as got:
+            port.decompress_array(arr)
+        with pytest.raises(RF.FormatError) as want:
+            ref.decompress_array(arr)
+        assert str(got.value) == str(want.value)
 
 
 def test_native_errors(cores):

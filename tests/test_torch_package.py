@@ -102,6 +102,18 @@ with tempfile.TemporaryDirectory() as tmp:
         assert cli.main(["--device", "cpu", "verify", src, out]) == 0
 with jobs.JobEngine(device="cpu") as eng, profiling.device_trace(None):
     assert eng.decompress(eng.compress(data)) == data
+import numpy as np
+from turbosqueeze_tpu_torch.runtime import native
+arr = np.frombuffer(corpus.incompressible(3000) + data, np.uint8)
+assert np.array_equal(native.decompress_array(native.compress_array(arr)), arr)
+assert len(corpus.standard_cases()) == 11
+assert corpus.checksum(data) == corpus.checksum(bytes(data))
+assert len(corpus.ratio_sweep_files(include_real=False)) == 5
+sys.path.insert(0, "tests")
+import chip_smoke
+from gang_streams import mixed_case, scale_blocks
+assert len(mixed_case(np.random.default_rng(1), 90_000)) == 90_000
+assert len(scale_blocks(1, n_blocks=1, n_pure=0)) == 4 << 20
 loaded = [m for m in sys.modules if m.split(".")[0] in _BLOCKED]
 assert not loaded, loaded
 print("ok")
@@ -112,7 +124,9 @@ def test_import_never_loads_jax():
     """Neither JAX nor the JAX package is loaded by the port: importing
     every module, compressing and decoding on the CPU through the pipeline
     (every route, and over two shards), the native and oracle backends,
-    TSQX, ``decompress_to_file``, the CLI and the job engine."""
+    TSQX, ``decompress_to_file``, the CLI and the job engine, the corpus
+    helpers and the native array API; nor by ``chip_smoke.py`` and the
+    inputs it builds (``tests/gang_streams.py``)."""
     r = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr

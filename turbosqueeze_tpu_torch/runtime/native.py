@@ -12,7 +12,8 @@ under a ``threading.Lock``, so a first call from a pool thread is safe. A
 failed build raises with the compiler's output.
 
 It binds only what the port calls: the host codec (``compress``,
-``decompress``, their dictionary forms, with ``progress=``), the file
+``decompress``, their dictionary forms, with ``progress=``, and the
+numpy forms ``compress_array``, ``decompress_array``), the file
 pipeline (``compress_file``, ``decompress_file``), the emission
 helpers of device compress (``build_candidates``,
 ``encode_block_candidates``, ``encode_block_dict``), the tokenizer, and the
@@ -276,6 +277,43 @@ def decompress(stream: bytes, n_threads: int = 0, progress=None) -> bytes:
     if n != size:
         raise FormatError(f"native decompress short ({n} != {size})")
     return out
+
+
+def _ptr(arr: np.ndarray) -> ctypes.c_char_p:
+    return ctypes.cast(arr.ctypes.data, ctypes.c_char_p)
+
+
+def compress_array(arr: np.ndarray, ext: bool = True, level: int = 0,
+                   n_threads: int = 0) -> np.ndarray:
+    """A ``.tsq`` container of the uint8 array ``arr``, as a uint8 array:
+    one native call on the array's own buffer; the result is a view of a
+    fresh bound-size buffer, cut to the container."""
+    lib = _load()
+    arr = np.ascontiguousarray(arr, dtype=np.uint8)
+    bound = lib.tsq_compress_bound(arr.nbytes)
+    out = np.empty(bound, dtype=np.uint8)
+    n = lib.tsq_compress_mt(_ptr(arr), arr.nbytes, _ptr(out), bound,
+                            1 if ext else 0, level, n_threads)
+    if n < 0:
+        raise RuntimeError(f"native compress failed (code {n})")
+    return out[:n]
+
+
+def decompress_array(stream_arr: np.ndarray,
+                     n_threads: int = 0) -> np.ndarray:
+    """The bytes of the ``.tsq`` container in the uint8 array
+    ``stream_arr``, as a uint8 array; FormatError on a bad stream."""
+    lib = _load()
+    stream_arr = np.ascontiguousarray(stream_arr, dtype=np.uint8)
+    size = lib.tsq_decompressed_size(_ptr(stream_arr), stream_arr.nbytes)
+    if size < 0:
+        raise FormatError(f"bad .tsq stream (code {size})")
+    out = np.empty(max(size, 1), dtype=np.uint8)
+    n = lib.tsq_decompress_mt(_ptr(stream_arr), stream_arr.nbytes,
+                              _ptr(out), size, n_threads)
+    if n < 0:
+        raise FormatError(f"native decompress failed (code {n})")
+    return out[:n]
 
 
 def compress_dict(data: bytes, dictionary: bytes, ext: bool = True,

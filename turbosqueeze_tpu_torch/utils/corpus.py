@@ -1,7 +1,7 @@
 """Deterministic corpora for tests and ``chip_smoke.py``: the port's own
-copy of ``turbosqueeze_tpu/utils/corpus.py`` (the generators the port
-uses). ``tests/test_torch_host_copies.py`` holds them equal to the
-original's for the same seeds.
+copy of ``turbosqueeze_tpu/utils/corpus.py``.
+``tests/test_torch_host_copies.py`` holds them equal to the original's
+for the same seeds.
 
 The seeded generators stand in for enwik-like text and structured binary:
 word and phrase reuse, zero pages, repeating records and random spans
@@ -11,6 +11,7 @@ exercise literal runs, short and long matches and 64 KiB window edges.
 from __future__ import annotations
 
 import random
+import zlib
 from typing import List
 
 _WORDS = (
@@ -62,6 +63,30 @@ def synthetic_binary(size: int, seed: int = 99) -> bytes:
     return bytes(out[:size])
 
 
+def incompressible(size: int, seed: int = 7) -> bytes:
+    """High-entropy bytes (worst case: pure literal output)."""
+    rng = random.Random(seed)
+    return rng.randbytes(size)
+
+
+def standard_cases() -> List[bytes]:
+    """Small corpus used across unit tests."""
+    text = synthetic_text(40_000)
+    return [
+        b"x",
+        b"abc",
+        b"a" * 17,
+        b"a" * 1000,
+        bytes(range(256)) * 8,
+        text[:699],
+        text,
+        incompressible(5000),
+        synthetic_binary(30_000),
+        (b"abcdefgh" * 100 + incompressible(200, seed=3)) * 3,
+        synthetic_text(70_000, seed=2) + incompressible(3000, seed=4),
+    ]
+
+
 def real_files() -> dict:
     """Real (non-synthetic) corpus classes bundled in the repository,
     decompressed from tests/data/real/*.xz (provenance and licenses in the
@@ -78,3 +103,28 @@ def real_files() -> dict:
             out["real-" + name.split(".")[0]] = lzma.decompress(
                 f.read_bytes())
     return out
+
+
+def ratio_sweep_files(include_real: bool = True) -> dict:
+    """The file classes of the ratio sweep: 1 MiB each of synthetic text,
+    structured binary records, zeros and incompressible bytes, a mixed
+    file of all four, and with ``include_real`` the in-repo real files
+    (``real_files``)."""
+    files = {
+        "text": synthetic_text(1 << 20, seed=301),
+        "binary-records": synthetic_binary(1 << 20, seed=302),
+        "zeros": bytes(1 << 20),
+        "incompressible": incompressible(1 << 20, seed=303),
+        "mixed": (synthetic_text(300_000, seed=304)
+                  + incompressible(200_000, seed=305)
+                  + synthetic_binary(300_000, seed=306)
+                  + bytes(200_000)),
+    }
+    if include_real:
+        files.update(real_files())
+    return files
+
+
+def checksum(data: bytes) -> int:
+    """CRC-32 (zlib) of ``data``."""
+    return zlib.crc32(data)
