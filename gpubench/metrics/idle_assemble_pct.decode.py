@@ -1,0 +1,9 @@
+"""The share of the traced window, %, in which the device was idle while
+the calling thread's innermost span was the output's assembly
+(``decode.assemble``)."""
+
+from gpubench.lib.spans import idle_pct
+
+
+def read(run):
+    return idle_pct(run, ("decode.assemble",))

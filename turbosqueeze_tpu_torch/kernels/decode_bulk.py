@@ -61,6 +61,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import _build
 from .decode_tokens import LANES, OUT_ROWS, ROW_BYTES
 
@@ -371,8 +372,10 @@ def resolve_blocks(payloads_ext, map_fn=map, dictionary: bytes = None):
     resolver declines a block (decode it with the stream parser)."""
     from ..runtime import native
 
-    preps = list(map_fn(lambda pe: native.bulk_prep(*pe, dictionary),
-                        payloads_ext))
+    with profiling.span("host.resolve", blocks=len(payloads_ext)):
+        preps = list(map_fn(profiling.pooled(
+            "host.bulk_prep", lambda pe: native.bulk_prep(*pe, dictionary),
+            lambda pe: len(pe[0])), payloads_ext))
     return None if any(p is None for p in preps) else preps
 
 
@@ -390,24 +393,30 @@ def pack_batch(preps, abi: str, nblk: int = 1, map_fn=map):
     if abi == "bulk":
         merged = [(p[1], p[2]) for p in preps]
     elif abi == "bulk2":
-        merged = list(map_fn(lambda g: native.bulk_merge2(
-            preps[2 * g][1], preps[2 * g][2], preps[2 * g + 1][1],
-            preps[2 * g + 1][2]), range(Bn // 2)))
+        with profiling.span("host.merge", groups=Bn // 2):
+            merged = list(map_fn(profiling.pooled(
+                "host.bulk_merge", lambda g: native.bulk_merge2(
+                    preps[2 * g][1], preps[2 * g][2], preps[2 * g + 1][1],
+                    preps[2 * g + 1][2])), range(Bn // 2)))
     else:
-        merged = list(map_fn(lambda g: native.bulk_mergen(
-            [preps[nblk * g + k][1] for k in range(nblk)],
-            [preps[nblk * g + k][2] for k in range(nblk)]),
-            range(Bn // nblk)))
-    lit_rows = max(rows_for_bytes(len(p[0])) for p in preps)
-    rec_rows = max(rows_for_bytes(4 * len(m[0])) for m in merged)
-    lit_words = np.zeros((Bn, lit_rows, LANES), np.int32)
-    rec_words = np.zeros((Bn // nblk, rec_rows, LANES), np.int32)
-    meta = np.zeros((Bn // nblk, _ABIS[abi][0]), np.int32)
-    for k, p in enumerate(preps):
-        lit_words[k] = pack_lit_words(p[0], lit_rows)
-    for g, (rec, m) in enumerate(merged):
-        rec_words[g] = pack_rec_words(rec, rec_rows)
-        meta[g] = m.view(np.int32)
+        with profiling.span("host.merge", groups=Bn // nblk):
+            merged = list(map_fn(profiling.pooled(
+                "host.bulk_merge", lambda g: native.bulk_mergen(
+                    [preps[nblk * g + k][1] for k in range(nblk)],
+                    [preps[nblk * g + k][2] for k in range(nblk)])),
+                range(Bn // nblk)))
+    with profiling.span("host.pack") as sp:
+        lit_rows = max(rows_for_bytes(len(p[0])) for p in preps)
+        rec_rows = max(rows_for_bytes(4 * len(m[0])) for m in merged)
+        lit_words = np.zeros((Bn, lit_rows, LANES), np.int32)
+        rec_words = np.zeros((Bn // nblk, rec_rows, LANES), np.int32)
+        meta = np.zeros((Bn // nblk, _ABIS[abi][0]), np.int32)
+        for k, p in enumerate(preps):
+            lit_words[k] = pack_lit_words(p[0], lit_rows)
+        for g, (rec, m) in enumerate(merged):
+            rec_words[g] = pack_rec_words(rec, rec_rows)
+            meta[g] = m.view(np.int32)
+        sp.add(bytes=lit_words.nbytes + rec_words.nbytes + meta.nbytes)
     return lit_words, rec_words, meta, sizes
 
 

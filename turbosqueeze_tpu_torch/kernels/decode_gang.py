@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import pad_batch
+from ..utils import profiling
 from . import _build
 from .decode_bulk import (EMPTY_PREP, MAX_WIN, TAIL_BYTES, WIN_BYTES,
                           WIN_ROWS, pack_lit_words, pack_rec_words,
@@ -256,18 +257,22 @@ def prep_gang(payloads_ext, nblk: int, slot_recs: int = 8, map_fn=map,
     sizes = [int(p[2][0]) for p in preps]
     preps += [EMPTY_PREP] * (pad_batch(len(preps), nblk) - len(preps))
     Bn = len(preps)
-    merged = list(map_fn(lambda g: native.bulk_gang(
-        [preps[nblk * g + k][1] for k in range(nblk)],
-        [preps[nblk * g + k][2] for k in range(nblk)], slot_recs),
-        range(Bn // nblk)))
-    lit_rows = max(rows_for_bytes(len(p[0])) for p in preps)
-    rec_rows = max(rows_for_bytes(4 * len(m[0])) for m in merged)
-    lit_words = np.zeros((Bn, lit_rows, LANES), np.int32)
-    gang_words = np.zeros((Bn // nblk, rec_rows, LANES), np.int32)
-    gmeta = np.zeros((Bn // nblk, GMETA_WORDS), np.int32)
-    for k, p in enumerate(preps):
-        lit_words[k] = pack_lit_words(p[0], lit_rows)
-    for gidx, (rec, m) in enumerate(merged):
-        gang_words[gidx] = pack_gang_words(rec, rec_rows)
-        gmeta[gidx] = m.view(np.int32)
+    with profiling.span("host.merge", groups=Bn // nblk):
+        merged = list(map_fn(profiling.pooled(
+            "host.bulk_gang", lambda g: native.bulk_gang(
+                [preps[nblk * g + k][1] for k in range(nblk)],
+                [preps[nblk * g + k][2] for k in range(nblk)], slot_recs)),
+            range(Bn // nblk)))
+    with profiling.span("host.pack") as sp:
+        lit_rows = max(rows_for_bytes(len(p[0])) for p in preps)
+        rec_rows = max(rows_for_bytes(4 * len(m[0])) for m in merged)
+        lit_words = np.zeros((Bn, lit_rows, LANES), np.int32)
+        gang_words = np.zeros((Bn // nblk, rec_rows, LANES), np.int32)
+        gmeta = np.zeros((Bn // nblk, GMETA_WORDS), np.int32)
+        for k, p in enumerate(preps):
+            lit_words[k] = pack_lit_words(p[0], lit_rows)
+        for gidx, (rec, m) in enumerate(merged):
+            gang_words[gidx] = pack_gang_words(rec, rec_rows)
+            gmeta[gidx] = m.view(np.int32)
+        sp.add(bytes=lit_words.nbytes + gang_words.nbytes + gmeta.nbytes)
     return lit_words, gang_words, gmeta, sizes

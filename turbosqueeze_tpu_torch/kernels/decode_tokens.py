@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..format import BLOCK_SZ, OUTPUT_SZ
+from ..utils import profiling
 
 from . import _build
 
@@ -59,16 +60,19 @@ def planes_to_torch(*arrays, device) -> list:
     """
     device = torch.device(device)
     out = []
-    for a in arrays:
-        a = np.ascontiguousarray(a)
-        if a.dtype == np.uint32:
-            a = a.view(np.int32)
-        if a.dtype != np.int32:
-            raise TypeError(f"planes are int32 or uint32 words, got {a.dtype}")
-        t = torch.from_numpy(a)
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        out.append(t.to(device))
+    with profiling.span("copy.stage") as sp:
+        for a in arrays:
+            a = np.ascontiguousarray(a)
+            sp.add(bytes=a.nbytes)
+            if a.dtype == np.uint32:
+                a = a.view(np.int32)
+            if a.dtype != np.int32:
+                raise TypeError(f"planes are int32 or uint32 words, got "
+                                f"{a.dtype}")
+            t = torch.from_numpy(a)
+            if device.type == "cuda":
+                t = t.pin_memory().to(device, non_blocking=True)
+            out.append(t.to(device))
     return out
 
 

@@ -82,6 +82,7 @@ from ..kernels import encode_flat as EF
 from ..kernels import encode_xla as EX
 from ..kernels.decode_tokens import planes_to_torch
 from ..runtime import native
+from ..utils import profiling
 from . import mesh as mesh_mod
 
 # records per gang slot by co-schedule width: the JAX package's table. The
@@ -135,7 +136,8 @@ class _Pending:
     def views(self) -> List[torch.Tensor]:
         """Each block's bytes, as uint8 views of the host copy."""
         if self.done is not None:
-            self.done.synchronize()
+            with profiling.span("decode.drain"):
+                self.done.synchronize()
         flat = self.host.view(torch.uint8).reshape(self.host.shape[0], -1)
         return [flat[b, self.base:self.base + n]
                 for b, n in enumerate(self.sizes)]
@@ -277,34 +279,42 @@ def _to_host0(windows, sizes: List[int], total_size: int,
         # posted; each holds a view of its pinned copy until then
         sent = []
         for shards in windows:
-            cur = []
-            for sh in shards:
-                if sh.pending is None:
-                    continue
-                for b, block in _local_blocks(sh, sizes):
-                    cur += [dist.isend(block[c:c + _HOST0_CHUNK], dst=0, tag=b)
-                            for c in range(0, len(block), _HOST0_CHUNK)]
+            with profiling.span("decode.assemble") as sp:
+                cur = []
+                for sh in shards:
+                    if sh.pending is None:
+                        continue
+                    for b, block in _local_blocks(sh, sizes):
+                        cur += [dist.isend(block[c:c + _HOST0_CHUNK], dst=0,
+                                           tag=b)
+                                for c in range(0, len(block), _HOST0_CHUNK)]
+                        sp.add(bytes=len(block))
+                for w in sent:
+                    w.wait()
+                sent = cur
+        with profiling.span("decode.assemble"):
             for w in sent:
                 w.wait()
-            sent = cur
-        for w in sent:
-            w.wait()
         return b""
-    out, dst = _result_buffer(total_size)
+    with profiling.span("decode.assemble"):
+        out, dst = _result_buffer(total_size)
     offs = np.concatenate([[0], np.cumsum(sizes, dtype=np.int64)]).tolist()
     for shards in windows:
-        for sh in shards:
-            if sh.pending is not None:
-                for b, block in _local_blocks(sh, sizes):
-                    dst[offs[b]:offs[b + 1]] = block.numpy()
-            else:
-                for b in range(sh.lo, sh.hi):
-                    into = torch.from_numpy(dst[offs[b]:offs[b + 1]])
-                    for c in range(0, sizes[b], _HOST0_CHUNK):
-                        dist.recv(into[c:c + _HOST0_CHUNK], src=sh.rank, tag=b)
-            if progress is not None:
-                for b in range(sh.lo, sh.hi):
-                    progress(b + 1, len(sizes))
+        with profiling.span("decode.assemble",
+                            bytes=sum(sizes[shards[0].lo:shards[-1].hi])):
+            for sh in shards:
+                if sh.pending is not None:
+                    for b, block in _local_blocks(sh, sizes):
+                        dst[offs[b]:offs[b + 1]] = block.numpy()
+                else:
+                    for b in range(sh.lo, sh.hi):
+                        into = torch.from_numpy(dst[offs[b]:offs[b + 1]])
+                        for c in range(0, sizes[b], _HOST0_CHUNK):
+                            dist.recv(into[c:c + _HOST0_CHUNK], src=sh.rank,
+                                      tag=b)
+                if progress is not None:
+                    for b in range(sh.lo, sh.hi):
+                        progress(b + 1, len(sizes))
     return out
 
 
@@ -312,10 +322,12 @@ def _upload(arrays, device) -> list:
     """numpy arrays -> tensors on ``device``; a CUDA copy goes through
     pinned memory and does not wait."""
     out = []
-    for a in arrays:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        out.append(t.pin_memory().to(device, non_blocking=True)
-                   if device.type == "cuda" else t)
+    with profiling.span("copy.stage") as sp:
+        for a in arrays:
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            sp.add(bytes=t.nbytes)
+            out.append(t.pin_memory().to(device, non_blocking=True)
+                       if device.type == "cuda" else t)
     return out
 
 
@@ -376,13 +388,15 @@ def _stream_window(stream, table_window, device, pool, dictionary=None):
     Returns (words, dict_len)."""
     dlen = len(dictionary) if dictionary else 0
     sizes = _declared_sizes(stream, table_window)
-    pw = np.zeros((len(table_window), DK.PAY_ROWS, DK.LANES), np.int32)
-    for b, (off, psz, _) in enumerate(table_window):
-        pw[b] = DK.pack_payload_words(stream[off:off + psz])
-    planes = [pw, DST.pack_meta([ext for _, _, ext in table_window], sizes,
-                                dict_len=dlen)]
-    if dlen:
-        planes.append(DST.pack_dict_words(dictionary))
+    with profiling.span("host.pack") as sp:
+        pw = np.zeros((len(table_window), DK.PAY_ROWS, DK.LANES), np.int32)
+        for b, (off, psz, _) in enumerate(table_window):
+            pw[b] = DK.pack_payload_words(stream[off:off + psz])
+        planes = [pw, DST.pack_meta([ext for _, _, ext in table_window],
+                                    sizes, dict_len=dlen)]
+        if dlen:
+            planes.append(DST.pack_dict_words(dictionary))
+        sp.add(bytes=sum(p.nbytes for p in planes))
     # dict-extended writes reach dict_len + size: widen the output
     out_rows = DK.OUT_ROWS + (_DICT_PAD // DK.ROW_BYTES if dlen else 0)
     words = DST.decode_stream_batch(*planes_to_torch(*planes, device=device),
@@ -395,8 +409,9 @@ def _tokenize_window(stream, table_window, dictionary, pool):
     pool (the native core releases the GIL)."""
     from ..block import tokenize_with_dict
 
-    return list(pool.map(lambda e: tokenize_with_dict(
-        stream[e[0]:e[0] + e[1]], e[2], dictionary), table_window))
+    with profiling.span("host.tokenize", blocks=len(table_window)):
+        return list(pool.map(lambda e: tokenize_with_dict(
+            stream[e[0]:e[0] + e[1]], e[2], dictionary), table_window))
 
 
 def _token_planes(parsed, pool, pin: bool):
@@ -409,18 +424,20 @@ def _token_planes(parsed, pool, pin: bool):
     n_chunks = _round_up(DK.n_chunks_for_tokens(
         max(len(p[1]) for p in parsed)), 64)
     B = len(parsed)
-    planes = [torch.empty(shape, dtype=torch.int32, pin_memory=pin)
-              for shape in ((B, pay_rows, DK.LANES),
-                            *[(B, n_chunks, DK._SLOT_ROWS, DK.LANES)] * 2)]
-    pay, tok_a, tok_b = (p.numpy() for p in planes)
+    with profiling.span("host.pack") as sp:
+        planes = [torch.empty(shape, dtype=torch.int32, pin_memory=pin)
+                  for shape in ((B, pay_rows, DK.LANES),
+                                *[(B, n_chunks, DK._SLOT_ROWS, DK.LANES)] * 2)]
+        pay, tok_a, tok_b = (p.numpy() for p in planes)
 
-    def pack(b):
-        p = parsed[b]
-        pay[b] = DK.pack_payload_words(p[0], pay_rows)
-        tok_a[b], tok_b[b] = DK.pack_tokens(*p[1:5], n_chunks,
-                                            pay_rows=pay_rows)
+        def pack(b):
+            p = parsed[b]
+            pay[b] = DK.pack_payload_words(p[0], pay_rows)
+            tok_a[b], tok_b[b] = DK.pack_tokens(*p[1:5], n_chunks,
+                                                pay_rows=pay_rows)
 
-    list(pool.map(pack, range(B)))
+        list(pool.map(pack, range(B)))
+        sp.add(bytes=sum(p.nbytes for p in (pay, tok_a, tok_b)))
     return planes, out_rows
 
 
@@ -429,7 +446,8 @@ def _pallas_window(stream, table_window, device, pool, dictionary=None):
     on it. Returns (words, dict_len)."""
     parsed = _tokenize_window(stream, table_window, dictionary, pool)
     planes, out_rows = _token_planes(parsed, pool, device.type == "cuda")
-    planes = [p.to(device, non_blocking=True) for p in planes]
+    with profiling.span("copy.stage", bytes=sum(p.nbytes for p in planes)):
+        planes = [p.to(device, non_blocking=True) for p in planes]
     return DK.decode_tokens_batch(*planes, out_rows=out_rows), parsed[0][6]
 
 
@@ -441,8 +459,10 @@ def _xla_window(stream, table_window, device, pool, dictionary=None):
     base = parsed[0][6]
     pad = _DICT_PAD if base else 0
     n_out = DXL.OUT_N + pad
-    toks = DXL.pack_token_batch([p[1:5] for p in parsed], n_out)
-    pay = DXL.pack_payload_batch([p[0] for p in parsed], DXL.PAY_N + pad)
+    with profiling.span("host.pack") as sp:
+        toks = DXL.pack_token_batch([p[1:5] for p in parsed], n_out)
+        pay = DXL.pack_payload_batch([p[0] for p in parsed], DXL.PAY_N + pad)
+        sp.add(bytes=sum(a.nbytes for a in (*toks, pay)))
     return DXL.decode_batch_xla(*_upload((*toks, pay), device),
                                 n_out=n_out), base
 
@@ -500,11 +520,20 @@ def decompress(stream: bytes, device=None, impl: str = "auto",
     if impl == "auto":
         impl = "gang"
     _check_impl(impl, _WINDOW_ROUTES)
-    hdr, table = scan_block_table(stream)
-    windows = _decoded_windows(stream, table, device, impl, window_blocks,
-                               dictionary)
-    return _to_host0(windows, _declared_sizes(stream, table),
-                     hdr.total_size, progress)
+    with profiling.call("decode.call", route=impl) as sp:
+        hdr, table, sizes = _scan(stream)
+        windows = _decoded_windows(stream, table, device, impl, window_blocks,
+                                   dictionary)
+        out = _to_host0(windows, sizes, hdr.total_size, progress)
+        sp.add(bytes_in=len(stream), bytes_out=len(out), blocks=len(table))
+    return out
+
+
+def _scan(stream: bytes):
+    """The container's header, block table and declared block sizes."""
+    with profiling.span("decode.scan"):
+        hdr, table = scan_block_table(stream)
+        return hdr, table, _declared_sizes(stream, table)
 
 
 def _decoded_windows(stream, table, device, impl: str, window_blocks: int,
@@ -521,10 +550,12 @@ def _decoded_windows(stream, table, device, impl: str, window_blocks: int,
 
     def launch(lo, hi, dev, pool):
         win = table[lo:hi]
-        r = _WINDOW_ROUTES[impl](stream, win, dev, pool, dictionary)
-        if r is None:  # the resolver declined a block
-            r = _stream_window(stream, win, dev, pool, dictionary)
-        return _Pending(r[0], _declared_sizes(stream, win), r[1])
+        with profiling.span("decode.window", blocks=hi - lo) as sp:
+            r = _WINDOW_ROUTES[impl](stream, win, dev, pool, dictionary)
+            if r is None:  # the resolver declined a block
+                sp.add(declined=1)
+                r = _stream_window(stream, win, dev, pool, dictionary)
+            return _Pending(r[0], _declared_sizes(stream, win), r[1])
 
     def windows():
         with ThreadPoolExecutor() as pool:  # the native core releases the GIL
@@ -557,30 +588,34 @@ def decompress_to_file(stream: bytes, out_path, device=None,
     if impl == "auto":
         impl = "gang"
     _check_impl(impl, _FILE_IMPLS)
-    hdr, table = scan_block_table(stream)
-    windows = _decoded_windows(stream, table, device, impl, window_blocks,
-                               dictionary)
-    sizes = _declared_sizes(stream, table)
-    _check_sizes(sizes, hdr.total_size)
-    several = mesh_mod.process_count() > 1
-    if mesh_mod.process_index() == 0:
-        with open(out_path, "wb") as f:
-            f.truncate(hdr.total_size)
-    if several:
-        dist.barrier()
-    written = 0
-    with open(out_path, "r+b") as f:
-        for shards in windows:
-            for sh in shards:
-                if sh.pending is None:
-                    continue
-                for b, part in _local_blocks(sh, sizes):
-                    f.seek(b << 22)
-                    f.write(part.numpy())
-                    written += len(part)
-    if several:
-        dist.barrier()
-        return hdr.total_size
+    with profiling.call("decode.call", route=impl) as sp:
+        hdr, table, sizes = _scan(stream)
+        sp.add(bytes_in=len(stream), blocks=len(table))
+        windows = _decoded_windows(stream, table, device, impl, window_blocks,
+                                   dictionary)
+        _check_sizes(sizes, hdr.total_size)
+        several = mesh_mod.process_count() > 1
+        if mesh_mod.process_index() == 0:
+            with open(out_path, "wb") as f:
+                f.truncate(hdr.total_size)
+        if several:
+            dist.barrier()
+        written = 0
+        with open(out_path, "r+b") as f:
+            for shards in windows:
+                with profiling.span("decode.assemble") as asm:
+                    for sh in shards:
+                        if sh.pending is None:
+                            continue
+                        for b, part in _local_blocks(sh, sizes):
+                            f.seek(b << 22)
+                            f.write(part.numpy())
+                            written += len(part)
+                            asm.add(bytes=len(part))
+        sp.add(bytes_out=written)
+        if several:
+            dist.barrier()
+            return hdr.total_size
     if written != hdr.total_size:
         raise FormatError(
             f"decoded {written} bytes, container declares {hdr.total_size}")
@@ -612,23 +647,26 @@ def decompress_to_words(stream: bytes, device=None, impl: str = "pallas",
     ``window_blocks`` raise ``ValueError`` on every rank.
     """
     _check_impl(impl, ("pallas", "stream"))
-    hdr, table = scan_block_table(stream)
-    spread = _Spread(device, len(table), window_blocks, WINDOW_BLOCKS)
-    window = window_blocks if window_blocks > 0 else WINDOW_BLOCKS
-    B, rows = mesh_mod.padded_shards(len(table), len(spread.devices))
-    shards = [mesh_mod.Shard(sl, dev, torch.zeros(
-        (sl.stop - sl.start, DK.OUT_ROWS, DK.LANES), dtype=torch.int32,
-        device=dev)) for sl, dev in zip(rows, spread.devices)]
-    with ThreadPoolExecutor() as pool:
-        for lo in range(0, B // spread.n_shards, window):
-            for sh in shards:
-                first = sh.index.start + lo
-                win = table[first:min(first + window, sh.index.stop)]
-                if win:  # padding rows launch nothing
-                    sh.data[lo:lo + len(win)] = _WINDOW_ROUTES[impl](
-                        stream, win, sh.device, pool)[0]
+    with profiling.call("decode.call", route=impl) as sp:
+        hdr, table, sizes = _scan(stream)
+        sp.add(bytes_in=len(stream), blocks=len(table))
+        spread = _Spread(device, len(table), window_blocks, WINDOW_BLOCKS)
+        window = window_blocks if window_blocks > 0 else WINDOW_BLOCKS
+        B, rows = mesh_mod.padded_shards(len(table), len(spread.devices))
+        shards = [mesh_mod.Shard(sl, dev, torch.zeros(
+            (sl.stop - sl.start, DK.OUT_ROWS, DK.LANES), dtype=torch.int32,
+            device=dev)) for sl, dev in zip(rows, spread.devices)]
+        with ThreadPoolExecutor() as pool:
+            for lo in range(0, B // spread.n_shards, window):
+                for sh in shards:
+                    first = sh.index.start + lo
+                    win = table[first:min(first + window, sh.index.stop)]
+                    if win:  # padding rows launch nothing
+                        with profiling.span("decode.window", blocks=len(win)):
+                            sh.data[lo:lo + len(win)] = _WINDOW_ROUTES[impl](
+                                stream, win, sh.device, pool)[0]
     return (mesh_mod.BlockShards((B, DK.OUT_ROWS, DK.LANES), tuple(shards)),
-            _declared_sizes(stream, table), hdr)
+            sizes, hdr)
 
 
 # --- compress ----------------------------------------------------------------
@@ -639,13 +677,16 @@ def _upload_window(win: List[bytes], dictionary, device) -> torch.Tensor:
     pinned memory and copied without waiting."""
     d = dictionary or b""
     cuda = device.type == "cuda"
-    host = torch.zeros((len(win), EE.IN_ROWS * DK.ROW_BYTES),
-                       dtype=torch.uint8, pin_memory=cuda)
-    rows = host.numpy()
-    for b, blk in enumerate(win):
-        rows[b, :len(d)] = np.frombuffer(d, dtype=np.uint8)
-        rows[b, len(d):len(d) + len(blk)] = np.frombuffer(blk, dtype=np.uint8)
-    return host.to(device, non_blocking=True) if cuda else host
+    with profiling.span("copy.stage") as sp:
+        host = torch.zeros((len(win), EE.IN_ROWS * DK.ROW_BYTES),
+                           dtype=torch.uint8, pin_memory=cuda)
+        rows = host.numpy()
+        for b, blk in enumerate(win):
+            rows[b, :len(d)] = np.frombuffer(d, dtype=np.uint8)
+            rows[b, len(d):len(d) + len(blk)] = np.frombuffer(blk,
+                                                              dtype=np.uint8)
+        sp.add(bytes=host.nbytes)
+        return host.to(device, non_blocking=True) if cuda else host
 
 
 def _phase_a(batch: torch.Tensor, win: List[bytes], dlen: int) -> torch.Tensor:
@@ -691,17 +732,19 @@ def _download_window(words: torch.Tensor, osz: torch.Tensor,
     """Each block's payload, copying back only the live prefix of the
     output plane (the rows up to the longest payload); None for a block
     the emitter flagged as overflowed."""
-    osz = osz.cpu()
-    sizes, flagged = osz[:, 0].tolist(), (osz[:, 2] != 0).tolist()
-    live = [n for n, f in zip(sizes, flagged) if not f]
-    if min(live, default=1) < 1:
-        raise RuntimeError(f"the {emitter} emitter refused a block: osz "
-                           f"{sizes}")
-    rows = max(1, -(-max(live, default=0) // DK.ROW_BYTES))
-    flat = words[:, :rows].cpu().contiguous().view(torch.uint8).reshape(
-        len(sizes), -1)
-    return [None if f else flat[b, :n].numpy().tobytes()
-            for b, (n, f) in enumerate(zip(sizes, flagged))]
+    with profiling.span("compress.download") as sp:
+        osz = osz.cpu()
+        sizes, flagged = osz[:, 0].tolist(), (osz[:, 2] != 0).tolist()
+        live = [n for n, f in zip(sizes, flagged) if not f]
+        if min(live, default=1) < 1:
+            raise RuntimeError(f"the {emitter} emitter refused a block: osz "
+                               f"{sizes}")
+        rows = max(1, -(-max(live, default=0) // DK.ROW_BYTES))
+        flat = words[:, :rows].cpu().contiguous().view(torch.uint8).reshape(
+            len(sizes), -1)
+        sp.add(bytes=flat.nbytes)
+        return [None if f else flat[b, :n].numpy().tobytes()
+                for b, (n, f) in enumerate(zip(sizes, flagged))]
 
 
 def _host_emitter(win, cands, dictionary, ext: bool, level: int):
@@ -757,29 +800,42 @@ def compress(data: bytes, ext: bool = True, level: int = 1, device=None,
         if not 0 < len(dictionary) <= native.MAX_DICT:
             raise ValueError(f"dictionary must be 1..{native.MAX_DICT} bytes")
         level = max(level, 1)
-    blocks = split_blocks(data)
-    spread = _Spread(device, len(blocks), window_blocks, WINDOW_BLOCKS)
+    with profiling.call("compress.call", bytes_in=len(data),
+                        level=level) as call:
+        with profiling.span("compress.split"):
+            blocks = split_blocks(data)
+        call.add(blocks=len(blocks))
+        spread = _Spread(device, len(blocks), window_blocks, WINDOW_BLOCKS)
 
-    parts = [ContainerHeader(len(blocks), len(data)).pack()]
-    with ThreadPoolExecutor() as pool:  # the native core releases the GIL
-        for lo in range(0, len(blocks), spread.window):
-            hi = min(lo + spread.window, len(blocks))
-            shards = list(spread.shards(lo, hi))
-            # every local shard is launched before the first is drained
-            launched = [(a, b, _launch_shard(blocks[a:b], dev, dictionary,
-                                             ext, level, emit_impl))
-                        for a, b, _, dev in shards if dev is not None]
-            mine = {}
-            for a, b, shard in launched:
-                mine.update(zip(range(a, b), _shard_payloads(
-                    blocks[a:b], shard, dictionary, ext, level, pool)))
-            payloads = _share_payloads(shards, mine)
-            for b in range(lo, hi):
-                parts += [pack_block_header(len(payloads[b]), ext),
-                          payloads[b]]
-                if progress is not None:
-                    progress(b + 1, len(blocks))
-    return b"".join(parts)
+        parts = [ContainerHeader(len(blocks), len(data)).pack()]
+        with ThreadPoolExecutor() as pool:  # the native core releases the GIL
+            for lo in range(0, len(blocks), spread.window):
+                hi = min(lo + spread.window, len(blocks))
+                shards = list(spread.shards(lo, hi))
+                with profiling.span("compress.window", blocks=hi - lo) as sp:
+                    over = overflow_blocks
+                    # every local shard is launched before the first is
+                    # drained
+                    launched = [(a, b, _launch_shard(
+                        blocks[a:b], dev, dictionary, ext, level, emit_impl))
+                                for a, b, _, dev in shards if dev is not None]
+                    mine = {}
+                    for a, b, shard in launched:
+                        mine.update(zip(range(a, b), _shard_payloads(
+                            blocks[a:b], shard, dictionary, ext, level, pool)))
+                    sp.add(overflowed=overflow_blocks - over)
+                payloads = _share_payloads(shards, mine)
+                with profiling.span("compress.join"):
+                    for b in range(lo, hi):
+                        parts += [pack_block_header(len(payloads[b]), ext),
+                                  payloads[b]]
+                        if progress is not None:
+                            progress(b + 1, len(blocks))
+        with profiling.span("compress.join") as sp:
+            out = b"".join(parts)
+            sp.add(bytes=len(out))
+        call.add(bytes_out=len(out))
+    return out
 
 
 def _launch_shard(win: List[bytes], dev, dictionary, ext: bool, level: int,
@@ -806,13 +862,15 @@ def _shard_payloads(win: List[bytes], shard, dictionary, ext: bool,
     cands, emitted = shard
     if emitted is None:
         emit = _host_emitter(win, cands, dictionary, ext, level)
-        return list(pool.map(emit, range(len(win))))
+        return list(pool.map(profiling.pooled("host.emit", emit),
+                             range(len(win))))
     payloads = _download_window(*emitted[1], emitted[0])
     over = [b for b, p in enumerate(payloads) if p is None]
     if over:
         emit = _host_emitter(win, cands, dictionary, ext, level)
         for b in over:
-            payloads[b] = emit(b)
+            with profiling.span("host.emit"):
+                payloads[b] = emit(b)
         overflow_blocks += len(over)
     return payloads
 
@@ -826,26 +884,27 @@ def _share_payloads(shards, mine: dict) -> dict:
     n = mesh_mod.process_count()
     if n == 1:
         return mine
-    owned = [[] for _ in range(n)]
-    for a, b, rank, _ in shards:
-        owned[rank] += range(a, b)
-    width = max(1, max(map(len, owned)))
-    mine_blocks = owned[mesh_mod.process_index()]
-    sizes = torch.zeros(width, dtype=torch.int64)
-    sizes[:len(mine_blocks)] = torch.tensor(
-        [len(mine[b]) for b in mine_blocks], dtype=torch.int64)
-    every = [torch.empty_like(sizes) for _ in range(n)]
-    dist.all_gather(every, sizes)
-    span = max(1, max(int(t.sum()) for t in every))
-    joined = torch.zeros(span, dtype=torch.uint8)
-    raw = b"".join(mine[b] for b in mine_blocks)
-    joined.numpy()[:len(raw)] = np.frombuffer(raw, np.uint8)
-    bufs = [torch.empty_like(joined) for _ in range(n)]
-    dist.all_gather(bufs, joined)
-    out = {}
-    for rank in range(n):
-        flat, o = bufs[rank].numpy(), 0
-        for b, size in zip(owned[rank], every[rank].tolist()):
-            out[b] = flat[o:o + size].tobytes()
-            o += size
-    return out
+    with profiling.span("compress.share"):
+        owned = [[] for _ in range(n)]
+        for a, b, rank, _ in shards:
+            owned[rank] += range(a, b)
+        width = max(1, max(map(len, owned)))
+        mine_blocks = owned[mesh_mod.process_index()]
+        sizes = torch.zeros(width, dtype=torch.int64)
+        sizes[:len(mine_blocks)] = torch.tensor(
+            [len(mine[b]) for b in mine_blocks], dtype=torch.int64)
+        every = [torch.empty_like(sizes) for _ in range(n)]
+        dist.all_gather(every, sizes)
+        span = max(1, max(int(t.sum()) for t in every))
+        joined = torch.zeros(span, dtype=torch.uint8)
+        raw = b"".join(mine[b] for b in mine_blocks)
+        joined.numpy()[:len(raw)] = np.frombuffer(raw, np.uint8)
+        bufs = [torch.empty_like(joined) for _ in range(n)]
+        dist.all_gather(bufs, joined)
+        out = {}
+        for rank in range(n):
+            flat, o = bufs[rank].numpy(), 0
+            for b, size in zip(owned[rank], every[rank].tolist()):
+                out[b] = flat[o:o + size].tobytes()
+                o += size
+        return out

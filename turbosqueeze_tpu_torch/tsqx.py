@@ -55,6 +55,7 @@ from .parallel import mesh as mesh_mod
 from .parallel.pipeline import (GANG_SRECS, _lookahead, _Pending, _Shard,
                                 _Spread, _to_host0)
 from .runtime import native
+from .utils import profiling
 
 MAGIC = b"TSQX"
 VERSION = 1
@@ -206,13 +207,15 @@ def _host_planes(view: TsqxView, lo: int, hi: int, pin: bool):
     (pinned when ``pin``): (lit, gang, gmeta) int32."""
     nblk = view.nblk
     out = []
-    for a in (view.lit_words[lo * nblk:hi * nblk], view.gang_words[lo:hi],
-              view.gmeta[lo:hi]):
-        t = torch.empty(a.shape, dtype=torch.int32, pin_memory=pin)
-        # one thread: on the H100 host torch's threaded copy was faster
-        # only at nblk 4 and 8, for several times the host CPU seconds
-        t.numpy()[...] = a
-        out.append(t)
+    with profiling.span("host.pack") as sp:
+        for a in (view.lit_words[lo * nblk:hi * nblk],
+                  view.gang_words[lo:hi], view.gmeta[lo:hi]):
+            t = torch.empty(a.shape, dtype=torch.int32, pin_memory=pin)
+            # one thread: on the H100 host torch's threaded copy was faster
+            # only at nblk 4 and 8, for several times the host CPU seconds
+            t.numpy()[...] = a
+            sp.add(bytes=t.nbytes)
+            out.append(t)
     return out
 
 
@@ -220,7 +223,8 @@ def _decode_groups(view: TsqxView, dev: torch.device, lo: int, hi: int):
     """Groups [lo, hi) through the gang kernel on ``dev``: (words,
     sizes)."""
     planes = _host_planes(view, lo, hi, dev.type == "cuda")
-    planes = [t.to(dev, non_blocking=True) for t in planes]
+    with profiling.span("copy.stage", bytes=sum(t.nbytes for t in planes)):
+        planes = [t.to(dev, non_blocking=True) for t in planes]
     words = DGK.decode_gang_batch(*planes, nblk=view.nblk,
                                   slot_recs=view.slot_recs)
     return words, view.block_sizes[lo * view.nblk:hi * view.nblk]
@@ -272,17 +276,25 @@ def decompress(data, device=None) -> bytes:
     gang kernel on its device; batch k + 1 is launched before batch k is
     drained. With several processes rank 0 returns the bytes and the
     others ``b""``."""
-    view = TsqxView(data)
-    spread = _Spread(device, view.n_groups, 0, BATCH_GROUPS)
-    nblk = view.nblk
+    with profiling.call("decode.call", route="tsqx") as sp:
+        with profiling.span("decode.scan"):
+            view = TsqxView(data)
+        spread = _Spread(device, view.n_groups, 0, BATCH_GROUPS)
+        nblk = view.nblk
 
-    def batches():
-        for lo in range(0, view.n_groups, spread.window):
-            yield [_Shard(a * nblk, b * nblk, rank,
-                          None if dev is None else
-                          _Pending(*_decode_groups(view, dev, a, b)))
-                   for a, b, rank, dev in spread.shards(
-                       lo, min(lo + spread.window, view.n_groups))]
+        def launch(a, b, dev):
+            with profiling.span("decode.window", blocks=(b - a) * nblk,
+                                groups=b - a):
+                return _Pending(*_decode_groups(view, dev, a, b))
 
-    return _to_host0(_lookahead(batches()), view.block_sizes,
-                     view.total_size)
+        def batches():
+            for lo in range(0, view.n_groups, spread.window):
+                yield [_Shard(a * nblk, b * nblk, rank,
+                              None if dev is None else launch(a, b, dev))
+                       for a, b, rank, dev in spread.shards(
+                           lo, min(lo + spread.window, view.n_groups))]
+
+        out = _to_host0(_lookahead(batches()), view.block_sizes,
+                        view.total_size)
+        sp.add(bytes_in=len(data), bytes_out=len(out), blocks=view.n_blocks)
+    return out
