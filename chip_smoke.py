@@ -1535,7 +1535,7 @@ def _bulk_classes(others=None):
         dev = planes_to_torch(*gplanes[:3], device="cuda")
         got = DG.decode_gang_batch(*dev, nblk=1, slot_recs=srecs)
         check(_bytes_of(got, 0, 0, len(blk)) == blk, f"gang {name} != input")
-        gm = gplanes[2][0].view(np.uint32)
+        gm = gplanes[2][0].numpy().view(np.uint32)
         timed("decode_gang", name, lambda: DG.decode_gang_batch(
             *dev, nblk=1, slot_recs=srecs), got,
               gangs=int(max(gm[16:16 + 2 * int(gm[8])], default=0)))

@@ -42,7 +42,7 @@ def _both(datas, levels, nblk, slot_recs):
     for a, b in zip(ref_planes, planes):  # the port's host glue agrees
         assert np.array_equal(np.asarray(a), np.asarray(b))
     lw, gw, gm, sizes = planes
-    ref = np.asarray(RG.decode_gang_batch(lw, gw, gm, nblk=nblk,
+    ref = np.asarray(RG.decode_gang_batch(*ref_planes[:3], nblk=nblk,
                                           interpret=True,
                                           slot_recs=slot_recs))
     got = PG.decode_gang_batch(*planes_to_torch(lw, gw, gm, device="cpu"),

@@ -4,14 +4,20 @@ reader that puts each idle instant of a traced window down to the
 innermost span on the calling thread (``gpubench/lib/spans.py``)."""
 
 import sys
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
+import torch
 from torch.profiler import ProfilerActivity, profile
 
 from turbosqueeze_tpu_torch import tsqx
 from turbosqueeze_tpu_torch.format import scan_block_table
+from turbosqueeze_tpu_torch.kernels.decode_tokens import planes_to_torch
 from turbosqueeze_tpu_torch.parallel import pipeline
 from turbosqueeze_tpu_torch.utils import profiling
 from turbosqueeze_tpu_torch.utils.profiling import Span
@@ -172,6 +178,114 @@ def test_tsqx_and_the_file_and_words_entries_record_a_call(stream,
         stream, device="cpu", impl="stream"))
     _one_call(got, "decode.call")
     assert "decode.window" in _by_name(got)
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The CPU build standing in for a CUDA one, which it cannot pin or
+    upload to: ``torch.empty(pin_memory=True)`` and ``pin_memory()`` give
+    host tensors that ``is_pinned`` reports as pinned, and a copy to a CUDA
+    device leaves a tensor where it is, so the kernels' plain versions
+    run. Returns the pinned tensors, kept alive so that no other tensor
+    reuses their memory."""
+    pinned = []
+    empty, to = torch.empty, torch.Tensor.to
+
+    def pinned_empty(*args, pin_memory=False, **kw):
+        t = empty(*args, **kw)
+        if pin_memory:
+            pinned.append(t)
+        return t
+
+    def pin(self):
+        pinned.append(self.clone())
+        return pinned[-1]
+
+    def is_pinned(self):
+        ptr = self.untyped_storage().data_ptr()
+        return any(t.untyped_storage().data_ptr() == ptr for t in pinned)
+
+    def upload(self, *args, **kw):
+        dev = args[0] if args else kw.get("device")
+        if isinstance(dev, (str, torch.device)) and \
+                torch.device(dev).type == "cuda":
+            return self
+        return to(self, *args, **kw)
+
+    monkeypatch.setattr(torch, "empty", pinned_empty)
+    monkeypatch.setattr(torch.Tensor, "pin_memory", pin)
+    monkeypatch.setattr(torch.Tensor, "is_pinned", is_pinned)
+    monkeypatch.setattr(torch.Tensor, "to", upload)
+    return pinned
+
+
+def _under_a_call(fn):
+    """fn()'s result and the spans it recorded inside a call span."""
+    def called():
+        with profiling.call("test.call"):
+            return fn()
+    return _traced(called)
+
+
+def test_copy_stage_restages_only_planes_not_pinned(fake_card):
+    arrays = [np.arange(16 * 128, dtype=np.int32).reshape(16, 128),
+              np.full((2, 32), 0xFFFFFFFF, np.uint32)]
+    nbytes = sum(a.nbytes for a in arrays)
+    held = [torch.empty(a.shape, dtype=torch.int32, pin_memory=True)
+            for a in arrays]
+    for t, a in zip(held, arrays):
+        t.numpy()[...] = a.view(np.int32)
+    for planes, restaged in ((arrays, nbytes), (held, 0)):
+        out, got = _under_a_call(lambda: planes_to_torch(*planes,
+                                                         device="cuda"))
+        (stage,) = _by_name(got)["copy.stage"]
+        assert stage.counts == {"bytes": nbytes, "restaged": restaged}
+        for t, a in zip(out, arrays):
+            assert t.dtype == torch.int32 and t.is_pinned()
+            assert np.array_equal(t.numpy(), a.view(np.int32))
+    # the pinned planes go up from where they are: no copy on the host
+    assert [t.data_ptr() for t in out] == [t.data_ptr() for t in held]
+    _, got = _under_a_call(lambda: planes_to_torch(*arrays, device="cpu"))
+    assert _by_name(got)["copy.stage"][0].counts["restaged"] == 0
+
+
+@pytest.mark.parametrize("route, restaged", [
+    ("gang", False), ("bulk2", True), ("stream", True)])
+def test_only_the_gang_route_uploads_its_planes_as_packed(
+        stream, fake_card, monkeypatch, route, restaged):
+    """On a CUDA device (faked) the gang route packs its planes on the pool
+    into pinned memory inside ``host.pack``, and ``copy.stage`` restages
+    none of them; the other routes restage every plane byte."""
+    from turbosqueeze_tpu_torch.kernels import decode_gang as PG
+    from turbosqueeze_tpu_torch.kernels.decode_tokens import words_to_bytes
+
+    fills = []
+    fill = PG._fill
+
+    def timed_fill(row, data):
+        t0 = time.perf_counter_ns()
+        fill(row, data)
+        fills.append((threading.get_native_id(), t0, time.perf_counter_ns()))
+
+    monkeypatch.setattr(PG, "_fill", timed_fill)
+    _, table = scan_block_table(stream)
+    with ThreadPoolExecutor(4) as pool:
+        (words, base), got = _under_a_call(
+            lambda: pipeline._WINDOW_ROUTES[route](
+                stream, table, torch.device("cuda"), pool))
+    assert words_to_bytes(words[0], base + len(DATA))[base:] == DATA
+    n = _by_name(got)
+    (pack,), (stage,) = n["host.pack"], n["copy.stage"]
+    assert stage.counts["bytes"] == pack.counts["bytes"] > 0
+    assert stage.counts["restaged"] == (stage.counts["bytes"] if restaged
+                                        else 0)
+    if route == "gang":
+        # a literal row and a record row a block, on the pool's threads
+        assert len(fills) == 2 and all(
+            tid != pack.tid and pack.start_ns <= t0 <= t1 <= pack.end_ns
+            for tid, t0, t1 in fills)
+    else:
+        assert not fills
 
 
 # -- the benchmark's reader -------------------------------------------------

@@ -41,7 +41,7 @@ from ..parallel.mesh import pad_batch
 from ..utils import profiling
 from . import _build
 from .decode_bulk import (EMPTY_PREP, MAX_WIN, TAIL_BYTES, WIN_BYTES,
-                          WIN_ROWS, pack_lit_words, pack_rec_words,
+                          WIN_ROWS, pack_rec_words,
                           resolve_blocks, rows_for_bytes)
 from .decode_tokens import LANES, OUT_ROWS, ROW_BYTES
 
@@ -235,15 +235,26 @@ def pack_gang_words(rec: np.ndarray, rec_rows: int) -> np.ndarray:
     return pack_rec_words(rec, rec_rows)
 
 
+def _fill(row: np.ndarray, data: np.ndarray) -> None:
+    """``data`` at the start of ``row`` and zeros after it: each byte of the
+    row written once, whatever the row held before."""
+    row[:len(data)] = data
+    row[len(data):] = 0
+
+
 def prep_gang(payloads_ext, nblk: int, slot_recs: int = 8, map_fn=map,
-              dictionary: bytes = None):
-    """bulk_prep + bulk_gang a list of (payload, ext); returns packed numpy
+              dictionary: bytes = None, pin: bool = False):
+    """bulk_prep + bulk_gang a list of (payload, ext); returns packed
     planes, or None if any block needs the stream-parser fallback.
-    ``map_fn`` maps the per-block resolves and per-group merges (the native
-    core releases the GIL, so a thread pool's ``map`` runs them in
-    parallel). With ``dictionary`` the planes cover the dict-extended
-    output space ``[0, dict_len + size)``, up to three 2 MiB windows
-    (decode with ``max_win=3``); block b's bytes start at ``dict_len``.
+    ``map_fn`` maps the per-block resolves, the per-group merges and the
+    per-group packing (the native core and numpy's copies release the
+    GIL, so a thread pool's ``map`` runs them in parallel). The planes are
+    int32 host tensors, in pinned memory when ``pin``, each byte written
+    once: a pinned block the host allocator recycles holds an earlier
+    window's bytes, so every padding byte is zeroed. With ``dictionary``
+    the planes cover the dict-extended output space ``[0, dict_len +
+    size)``, up to three 2 MiB windows (decode with ``max_win=3``); block
+    b's bytes start at ``dict_len``.
 
     (lit_words (Bn, LR, 128), gang_words (Bn//nblk, RR, 128),
     gmeta (Bn//nblk, 32), sizes) with Bn = len rounded up to a multiple
@@ -257,22 +268,30 @@ def prep_gang(payloads_ext, nblk: int, slot_recs: int = 8, map_fn=map,
     sizes = [int(p[2][0]) for p in preps]
     preps += [EMPTY_PREP] * (pad_batch(len(preps), nblk) - len(preps))
     Bn = len(preps)
-    with profiling.span("host.merge", groups=Bn // nblk):
+    G = Bn // nblk
+    with profiling.span("host.merge", groups=G):
         merged = list(map_fn(profiling.pooled(
             "host.bulk_gang", lambda g: native.bulk_gang(
                 [preps[nblk * g + k][1] for k in range(nblk)],
                 [preps[nblk * g + k][2] for k in range(nblk)], slot_recs)),
-            range(Bn // nblk)))
+            range(G)))
     with profiling.span("host.pack") as sp:
         lit_rows = max(rows_for_bytes(len(p[0])) for p in preps)
         rec_rows = max(rows_for_bytes(4 * len(m[0])) for m in merged)
-        lit_words = np.zeros((Bn, lit_rows, LANES), np.int32)
-        gang_words = np.zeros((Bn // nblk, rec_rows, LANES), np.int32)
-        gmeta = np.zeros((Bn // nblk, GMETA_WORDS), np.int32)
-        for k, p in enumerate(preps):
-            lit_words[k] = pack_lit_words(p[0], lit_rows)
-        for gidx, (rec, m) in enumerate(merged):
-            gang_words[gidx] = pack_gang_words(rec, rec_rows)
-            gmeta[gidx] = m.view(np.int32)
-        sp.add(bytes=lit_words.nbytes + gang_words.nbytes + gmeta.nbytes)
-    return lit_words, gang_words, gmeta, sizes
+        planes = [torch.empty(shape, dtype=torch.int32, pin_memory=pin)
+                  for shape in ((Bn, lit_rows, LANES), (G, rec_rows, LANES),
+                                (G, GMETA_WORDS))]
+        lit = planes[0].numpy().view(np.uint8).reshape(Bn, -1)
+        gang = planes[1].numpy().view(np.uint32).reshape(G, -1)
+        gmeta = planes[2].numpy()
+
+        def pack(g):
+            for b in range(nblk * g, nblk * (g + 1)):
+                _fill(lit[b], preps[b][0])
+            rec, meta = merged[g]
+            _fill(gang[g], rec)
+            gmeta[g] = meta.view(np.int32)
+
+        list(map_fn(pack, range(G)))
+        sp.add(bytes=sum(p.nbytes for p in planes))
+    return (*planes, sizes)

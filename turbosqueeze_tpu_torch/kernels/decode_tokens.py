@@ -51,27 +51,35 @@ launches = 0
 
 
 def planes_to_torch(*arrays, device) -> list:
-    """numpy planes -> contiguous int32 tensors on ``device``.
+    """numpy planes or int32 host tensors -> contiguous int32 tensors on
+    ``device``.
 
     uint32 planes are reinterpreted, never converted, so words with bit 31
     set keep their bit pattern; the ``(rows, 128)`` layout is kept as is.
     A CUDA copy goes through pinned memory and does not wait: it is
-    ordered before later work on the device's current stream.
+    ordered before later work on the device's current stream. A tensor
+    already pinned is copied from where it is; any other plane is first
+    copied into pinned memory, and ``copy.stage`` counts those bytes as
+    ``restaged``.
     """
     device = torch.device(device)
     out = []
-    with profiling.span("copy.stage") as sp:
+    with profiling.span("copy.stage", restaged=0) as sp:
         for a in arrays:
-            a = np.ascontiguousarray(a)
-            sp.add(bytes=a.nbytes)
-            if a.dtype == np.uint32:
-                a = a.view(np.int32)
-            if a.dtype != np.int32:
+            if not isinstance(a, torch.Tensor):
+                a = np.ascontiguousarray(a)
+                a = torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
+                                     else a)
+            if a.dtype != torch.int32:
                 raise TypeError(f"planes are int32 or uint32 words, got "
                                 f"{a.dtype}")
-            t = torch.from_numpy(a)
+            t = a.contiguous()
+            sp.add(bytes=t.nbytes)
             if device.type == "cuda":
-                t = t.pin_memory().to(device, non_blocking=True)
+                if not t.is_pinned():
+                    t = t.pin_memory()
+                    sp.add(restaged=t.nbytes)
+                t = t.to(device, non_blocking=True)
             out.append(t.to(device))
     return out
 

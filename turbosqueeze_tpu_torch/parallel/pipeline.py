@@ -320,14 +320,15 @@ def _to_host0(windows, sizes: List[int], total_size: int,
 
 def _upload(arrays, device) -> list:
     """numpy arrays -> tensors on ``device``; a CUDA copy goes through
-    pinned memory and does not wait."""
+    pinned memory (``restaged``) and does not wait."""
+    cuda = device.type == "cuda"
     out = []
-    with profiling.span("copy.stage") as sp:
+    with profiling.span("copy.stage", restaged=0) as sp:
         for a in arrays:
             t = torch.from_numpy(np.ascontiguousarray(a))
-            sp.add(bytes=t.nbytes)
+            sp.add(bytes=t.nbytes, restaged=t.nbytes if cuda else 0)
             out.append(t.pin_memory().to(device, non_blocking=True)
-                       if device.type == "cuda" else t)
+                       if cuda else t)
     return out
 
 
@@ -337,7 +338,8 @@ def _gang_window(stream, table_window, device, pool, dictionary=None):
     block (the window then goes to the stream kernel)."""
     payloads = [(stream[off:off + psz], ext) for off, psz, ext in table_window]
     planes = DGK.prep_gang(payloads, GANG_NBLK, GANG_SRECS[GANG_NBLK],
-                           map_fn=pool.map, dictionary=dictionary)
+                           map_fn=pool.map, dictionary=dictionary,
+                           pin=device.type == "cuda")
     if planes is None:
         return None
     base = len(dictionary) if dictionary else 0
@@ -446,7 +448,8 @@ def _pallas_window(stream, table_window, device, pool, dictionary=None):
     on it. Returns (words, dict_len)."""
     parsed = _tokenize_window(stream, table_window, dictionary, pool)
     planes, out_rows = _token_planes(parsed, pool, device.type == "cuda")
-    with profiling.span("copy.stage", bytes=sum(p.nbytes for p in planes)):
+    with profiling.span("copy.stage", bytes=sum(p.nbytes for p in planes),
+                        restaged=0):
         planes = [p.to(device, non_blocking=True) for p in planes]
     return DK.decode_tokens_batch(*planes, out_rows=out_rows), parsed[0][6]
 
@@ -677,7 +680,7 @@ def _upload_window(win: List[bytes], dictionary, device) -> torch.Tensor:
     pinned memory and copied without waiting."""
     d = dictionary or b""
     cuda = device.type == "cuda"
-    with profiling.span("copy.stage") as sp:
+    with profiling.span("copy.stage", restaged=0) as sp:
         host = torch.zeros((len(win), EE.IN_ROWS * DK.ROW_BYTES),
                            dtype=torch.uint8, pin_memory=cuda)
         rows = host.numpy()

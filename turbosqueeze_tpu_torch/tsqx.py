@@ -223,7 +223,8 @@ def _decode_groups(view: TsqxView, dev: torch.device, lo: int, hi: int):
     """Groups [lo, hi) through the gang kernel on ``dev``: (words,
     sizes)."""
     planes = _host_planes(view, lo, hi, dev.type == "cuda")
-    with profiling.span("copy.stage", bytes=sum(t.nbytes for t in planes)):
+    with profiling.span("copy.stage", bytes=sum(t.nbytes for t in planes),
+                        restaged=0):
         planes = [t.to(dev, non_blocking=True) for t in planes]
     words = DGK.decode_gang_batch(*planes, nblk=view.nblk,
                                   slot_recs=view.slot_recs)
