@@ -122,25 +122,116 @@ def cpu_seconds() -> float:
     return r.ru_utime + r.ru_stime
 
 
+def visible_cards(n: int, count: int, env):
+    """The ``CUDA_VISIBLE_DEVICES`` that leaves exactly ``n`` cards
+    visible, where ``count`` are visible under ``env`` (the variable as it
+    is, None where it is unset): None where exactly ``n`` are, the first
+    ``n`` of them where more are; ``NoCard`` where fewer are."""
+    if count == 0:
+        raise NoCard("no CUDA device: this benchmark runs on the card only")
+    if count < n:
+        raise NoCard(f"{count} CUDA devices, the cell needs {n}")
+    if count == n:
+        return None
+    if env is None:
+        return ",".join(str(i) for i in range(n))
+    return ",".join(e.strip() for e in env.split(",")[:n])
+
+
+def visible_count() -> int:
+    """The CUDA devices this process sees, counted through NVML where
+    torch can, which leaves CUDA uninitialised, so that
+    ``CUDA_VISIBLE_DEVICES`` still holds when it is set after."""
+    import torch
+
+    if not torch.backends.cuda.is_built():
+        return 0
+    nvml = getattr(torch.cuda, "_device_count_nvml", lambda: -1)()
+    return nvml if nvml >= 0 else torch.cuda.device_count()
+
+
+def uuid_key(uuid) -> str:
+    """A card's UUID as torch and ``nvidia-smi`` both give it."""
+    u = str(uuid).strip().lower()
+    return u[4:] if u.startswith("gpu-") else u
+
+
+def power_limits() -> dict:
+    """Every card's power limit as ``nvidia-smi`` gives it, by
+    ``uuid_key``; empty where it cannot be read."""
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=uuid,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, timeout=30)
+        rows = [line.split(",", 1) for line in r.stdout.splitlines()
+                if "," in line]
+    except (OSError, subprocess.TimeoutExpired):
+        rows = []
+    return {uuid_key(u): p.strip() for u, p in rows}
+
+
 def card(chips: int) -> dict:
-    """The card's name, the device count and the power limit, or
-    ``NoCard``."""
+    """Exactly the cell's ``chips`` cards made visible, before CUDA
+    starts; their kind, number and power limit. ``NoCard`` where there
+    are fewer, or where they are not all of one kind."""
+    count = visible_count()
+    pinned = visible_cards(chips, count,
+                           os.environ.get("CUDA_VISIBLE_DEVICES"))
+    if pinned is not None:
+        os.environ["CUDA_VISIBLE_DEVICES"] = pinned
+        log(f"CUDA_VISIBLE_DEVICES={pinned}: the first {chips} of "
+            f"{count} cards")
     import torch
 
     if not torch.cuda.is_available():
         raise NoCard("no CUDA device: this benchmark runs on the card only")
     n = torch.cuda.device_count()
-    if n < chips:
-        raise NoCard(f"{n} CUDA devices, the cell needs {chips}")
-    try:
-        r = subprocess.run(["nvidia-smi", "--query-gpu=power.limit",
-                            "--format=csv,noheader"], capture_output=True,
-                           text=True, timeout=30)
-        power = r.stdout.strip().splitlines()[0] if r.stdout.strip() else "?"
-    except (OSError, subprocess.TimeoutExpired):
-        power = "?"
-    return {"kind": torch.cuda.get_device_name(0), "count": n,
-            "power_limit": power}
+    if n != chips:
+        raise NoCard(f"{n} CUDA devices visible, the cell needs exactly "
+                     f"{chips}")
+    by_uuid = power_limits()
+    names = [torch.cuda.get_device_name(d) for d in range(n)]
+    limits = [by_uuid.get(uuid_key(getattr(
+        torch.cuda.get_device_properties(d), "uuid", "")), "?")
+        for d in range(n)]
+    for d in range(n):
+        log(f"card {d}: {names[d]}; power limit: {limits[d]}")
+    if len(set(names)) != 1:
+        raise NoCard(f"the cell's cards are not of one kind: {names}")
+    return {"kind": names[0], "count": n,
+            "power_limit": ", ".join(sorted(set(limits)))}
+
+
+def synchronize(n: int) -> None:
+    """Wait for each of the first ``n`` cards."""
+    import torch
+
+    for d in range(n):
+        torch.cuda.synchronize(d)
+
+
+def reset_peaks(n: int) -> None:
+    import torch
+
+    for d in range(n):
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def memory_peaks(n: int) -> list:
+    """Each of the first ``n`` cards' peak of allocated bytes since its
+    last reset."""
+    import torch
+
+    return [torch.cuda.max_memory_allocated(d) for d in range(n)]
+
+
+def fullest(setup_peaks, window_peaks) -> dict:
+    """The peaks of a run's cards: each card's over set-up and window, the
+    fullest card's, and the fullest card's in the window alone."""
+    by_card = [max(a, b) for a, b in zip(setup_peaks, window_peaks)]
+    return {"memory_peak_bytes": max(by_card, default=0),
+            "memory_peak_bytes_by_card": by_card,
+            "window_peak_bytes": max(window_peaks, default=0)}
 
 
 def forbidden_loaded() -> list:
@@ -170,6 +261,7 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, *,
 
     info = (card(work["chips"]) if on_card else
             {"kind": "cpu", "count": 0, "power_limit": "-"})
+    n_cards = info["count"]
     log(f"card: {info['kind']}; devices: {info['count']}; power limit: "
         f"{info['power_limit']}")
     log(f"cell {name}: config {work['config']}, traffic {work['traffic']}, "
@@ -184,10 +276,9 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, *,
 
     with op.wrapped(wrap):
         op.warm()
-        if on_card:
-            torch.cuda.synchronize()
-            setup_peak = torch.cuda.max_memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
+        synchronize(n_cards)
+        setup_peaks = memory_peaks(n_cards)
+        reset_peaks(n_cards)
         gc.collect()
         prof = None
         if traced:
@@ -204,12 +295,10 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, *,
         else:
             window_s = op.window(seconds)
         cpu_s = cpu_seconds() - cpu0
-        if on_card:
-            torch.cuda.synchronize()
+        synchronize(n_cards)
     log(f"set-up {setup_s:.3f} s; window {window_s:.3f} s, "
         f"{op.attempted} calls, {op.failed} failed")
-    window_peak = torch.cuda.max_memory_allocated() if on_card else 0
-    peak = max(setup_peak, window_peak) if on_card else 0
+    peaks = fullest(setup_peaks, memory_peaks(n_cards))
 
     bad = forbidden_loaded()
     if bad:
@@ -242,7 +331,8 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, *,
         cell=name, seconds=seconds, setup_s=setup_s, window_s=window_s,
         cpu_s=cpu_s, user_bytes=op.user_bytes(),
         roofline_bytes=op.roofline_bytes(), trace=tr,
-        window_peak_bytes=window_peak, power_limit=info["power_limit"])
+        window_peak_bytes=peaks["window_peak_bytes"], cards=work["chips"],
+        power_limit=info["power_limit"])
     kind = "per_layer" if traced else "end_to_end"
     metrics = {}
     for m in metrics_for(spec, name, kind):
@@ -251,34 +341,44 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, *,
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     device = {"platform": "gpu" if on_card else "cpu", "kind": info["kind"],
               "count": work["chips"] if on_card else 0,
-              "memory_peak_bytes": peak}
+              "memory_peak_bytes": peaks["memory_peak_bytes"],
+              "memory_peak_bytes_by_card":
+                  peaks["memory_peak_bytes_by_card"]}
     result = {"correct": correct, "attempted": op.attempted,
               "failed": op.failed, "metrics": metrics, "device": device}
     if tr is not None:
-        device["busy_s"] = T.covered(tr.device())
+        busy = [T.covered(tr.device(c))
+                for c in T.cell_cards(tr, work["chips"])]
+        device["busy_s"] = sum(busy) / len(busy)
+        device["busy_s_by_card"] = busy
         device["window_s"] = tr.window_s
-        result["breakdown"] = breakdown(tr, op.spans())
+        result["breakdown"] = breakdown(tr, op.spans(), work["chips"])
     for k, v in metrics.items():
         log(f"metric {k}: {v['value']} {v['unit']}")
     result["checks"] = checks
     return result
 
 
-def breakdown(tr: T.Trace, spans) -> dict:
+def breakdown(tr: T.Trace, spans, cards: int = 1) -> dict:
     """The ten device operations that took most time, by name, and the
-    ten longest idle gaps, each named by the host span open at its middle
-    (the earliest, where several are)."""
+    ten longest idle gaps of the cell's ``cards`` cards, each named by the
+    host span open at its middle (the earliest, where several are), and
+    by its card where there are several."""
     by_name = defaultdict(float)
     for n, a, b in tr.device():
         by_name[n] += b - a
     ops = sorted(by_name.items(), key=lambda x: -x[1])[:10]
-    gaps = sorted(T.gaps(tr.device(), tr.window_s),
+    each = T.cell_cards(tr, cards)
+    gaps = sorted([(a, b, c) for c in each
+                   for a, b in T.gaps(tr.device(c), tr.window_s)],
                   key=lambda g: g[0] - g[1])[:10]
     named = []
-    for a, b in gaps:
+    for a, b, c in gaps:
         mid = (a + b) / 2
         open_ = [s for s in spans if s[1] <= mid < s[2]]
         label = (f"{open_[0][0]} ({len(open_)} open)" if open_
                  else "no call open")
+        if len(each) > 1:
+            label = f"card {c}: {label}"
         named.append([label, b - a])
     return {"device_ops": [[n, s] for n, s in ops], "idle_gaps": named}

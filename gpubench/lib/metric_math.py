@@ -24,21 +24,33 @@ def p95(values):
     return v[max(0, math.ceil(0.95 * len(v)) - 1)]
 
 
+def cell_cards(run):
+    """The cell's cards in the run's trace (``trace.cell_cards``): the
+    run's ``cards``, or one where the run does not say."""
+    return T.cell_cards(run.trace, getattr(run, "cards", 1))
+
+
 def device_idle_pct(run):
+    """The mean of the cell's cards' idle shares of the traced window: 1
+    less the seconds each card ran an operation, summed over the cards,
+    over the cards' number times the window, in %."""
     tr = run.trace
     if tr is None or not tr.device() or not tr.window_s:
         return None
-    return 100.0 * (1.0 - T.covered(tr.device()) / tr.window_s)
+    busy = [T.covered(tr.device(c)) for c in cell_cards(run)]
+    return 100.0 * (1.0 - sum(busy) / (len(busy) * tr.window_s))
 
 
 def kernels_roofline_pct(run):
-    """The least time the window's bytes need at the card's peak, over the
-    time at least one kernel ran."""
+    """The least time the window's bytes need at the peak of the cell's
+    cards together, over the mean card's time in which at least one
+    kernel ran on it: the bytes' least time at one card's peak over the
+    kernel time summed over the cards."""
     tr = run.trace
     if tr is None or not tr.kernels or not run.roofline_bytes:
         return None
-    return 100.0 * roofline.least_seconds(run.roofline_bytes) / T.covered(
-        tr.kernels)
+    kernel_s = sum(T.covered(tr.kernels_on(c)) for c in cell_cards(run))
+    return 100.0 * roofline.least_seconds(run.roofline_bytes) / kernel_s
 
 
 def copy_ms_per_gb(run):

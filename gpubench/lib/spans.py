@@ -1,7 +1,7 @@
 """The program's own spans over a traced window
 (``turbosqueeze_tpu_torch.utils.profiling.spans``), put on the window's
-clock, and each idle instant of the device put down to the innermost span
-open at that instant on the thread that opened the call.
+clock, and each idle instant of each of the cell's cards put down to the
+innermost span open at that instant on the thread that opened the call.
 
 The window starts where ``core.run_cell`` takes ``setup_s``: process start
 (``CLOCK_BOOTTIME``, from ``/proc/self/stat``) plus ``setup_s``, just
@@ -17,6 +17,7 @@ import time
 from collections import defaultdict
 
 from .. import core
+from . import metric_math as M
 from . import trace as T
 
 # the spans of a call's own entry: idle time inside them and outside any
@@ -61,10 +62,10 @@ def on_window(run, spans=None):
 
 
 def idle_by_span(run, spans=None):
-    """Idle seconds of the traced window by the name of the innermost span
-    open on the calling thread (``UNTRACED`` for a call's own span or no
-    call); the values sum to the window's idle time. None where the
-    window has no spans."""
+    """Idle seconds of the cell's cards in the traced window by the name
+    of the innermost span open on the calling thread (``UNTRACED`` for a
+    call's own span or no call), summed over the cards; the values sum to
+    the cards' idle time together. None where the window has no spans."""
     placed = on_window(run, spans)
     if placed is None:
         return None
@@ -91,25 +92,29 @@ def idle_by_span(run, spans=None):
     if tr.window_s > t:
         labelled.append((t, tr.window_s, UNTRACED))
     idle = defaultdict(float)
-    gaps = T.gaps(tr.device(), tr.window_s)
-    k = 0
-    for a, b, name in labelled:
-        while k < len(gaps) and gaps[k][1] <= a:
-            k += 1
-        j = k
-        while j < len(gaps) and gaps[j][0] < b:
-            idle[name] += min(b, gaps[j][1]) - max(a, gaps[j][0])
-            j += 1
+    for card in M.cell_cards(run):
+        gaps = T.gaps(tr.device(card), tr.window_s)
+        k = 0
+        for a, b, name in labelled:
+            while k < len(gaps) and gaps[k][1] <= a:
+                k += 1
+            j = k
+            while j < len(gaps) and gaps[j][0] < b:
+                idle[name] += min(b, gaps[j][1]) - max(a, gaps[j][0])
+                j += 1
     return dict(idle)
 
 
 def idle_pct(run, names):
-    """The share of the traced window, %, in which the device was idle
-    and the innermost span on the calling thread was one of ``names``."""
+    """The share of the traced window, %, in which a card was idle and
+    the innermost span on the calling thread was one of ``names``, as a
+    mean over the cell's cards."""
     idle = idle_by_span(run)
     if idle is None:
         return None
-    return 100.0 * sum(idle.get(n, 0.0) for n in names) / run.trace.window_s
+    cards = len(M.cell_cards(run))
+    return 100.0 * sum(idle.get(n, 0.0) for n in names) / (
+        cards * run.trace.window_s)
 
 
 def cpu_seconds(run, names):

@@ -6,9 +6,11 @@
 from the root of a checkout. The last line of standard output is the
 run's JSON result; everything else goes to standard error, whose last
 lines are the numbers that decide ``correct``, each beside its limit. A
-run without a CUDA device, with fewer devices than the cell asks for, or
-that finds a module of the JAX stack or the JAX package loaded once the
-window has closed, exits with another code than 0 and prints no result.
+run sees exactly the cards the cell asks for (the first of those
+visible). A run without a CUDA device, with fewer devices than the cell
+asks for or cards of more than one kind, or that finds a module of the
+JAX stack or the JAX package loaded once the window has closed, exits
+with another code than 0 and prints no result.
 """
 
 from __future__ import annotations
