@@ -65,7 +65,8 @@ def test_window_scales_with_the_shards():
     spread = PP._Spread(THREE, 200, 0, PP.WINDOW_BLOCKS)
     assert spread.n_shards == 3 and spread.window == 3 * PP.WINDOW_BLOCKS
     assert list(spread.shards(96, 100)) == [
-        (96, 98, 0, torch.device("cpu")), (98, 100, 0, torch.device("cpu"))]
+        (96, 98, 0, torch.device("cpu"), 0),
+        (98, 100, 0, torch.device("cpu"), 1)]
     assert PP._Spread("cpu", 200, 5, PP.WINDOW_BLOCKS).window == 5
 
 

@@ -75,10 +75,11 @@ def test_decompress_records_the_gang_route(stream):
     assert out == DATA
     call = _one_call(got, "decode.call")
     n = _by_name(got)
-    assert call.counts == {"route": "gang", "bytes_in": len(stream),
-                           "bytes_out": len(DATA), "blocks": 1}
+    assert call.counts == {"route": "gang", "shards": 1,
+                           "bytes_in": len(stream), "bytes_out": len(DATA),
+                           "blocks": 1}
     (window,) = n["decode.window"]
-    assert window.counts == {"blocks": 1}
+    assert window.counts == {"blocks": 1, "card": 0}
     assert n["decode.scan"][0].parent == call.id
     assert {s.parent for s in n["decode.assemble"]} == {call.id}
     assert sum(s.counts.get("bytes", 0) for s in n["decode.assemble"]) \
@@ -121,7 +122,7 @@ def test_a_declined_window_counts_and_takes_the_stream_kernel(
     out, got = _traced(lambda: pipeline.decompress(stream, device="cpu"))
     assert out == DATA
     (window,) = _by_name(got)["decode.window"]
-    assert window.counts == {"blocks": 1, "declined": 1}
+    assert window.counts == {"blocks": 1, "card": 0, "declined": 1}
     under = {s.name for s in got if s.parent == window.id}
     assert under == {"host.resolve", "host.pack", "copy.stage"}
 

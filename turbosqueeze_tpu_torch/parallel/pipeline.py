@@ -120,10 +120,12 @@ def _declared_sizes(stream, table_window):
 class _Pending:
     """A window's decoded words on their way to the host: ``host`` is
     final once ``done`` (a CUDA event, or None on the CPU) has fired.
-    Block b's bytes are ``[base, base + sizes[b])`` of its row."""
+    Block b's bytes are ``[base, base + sizes[b])`` of its row; ``card``
+    names the shard's device on the wait's span (``_Spread.cards``)."""
 
-    def __init__(self, words: torch.Tensor, sizes: List[int], base: int = 0):
-        self.sizes, self.base = sizes, base
+    def __init__(self, words: torch.Tensor, sizes: List[int], base: int = 0,
+                 card: int = 0):
+        self.sizes, self.base, self.card = sizes, base, card
         if words.device.type == "cuda":
             self.host = torch.empty(words.shape, dtype=words.dtype,
                                     pin_memory=True)
@@ -136,7 +138,7 @@ class _Pending:
     def views(self) -> List[torch.Tensor]:
         """Each block's bytes, as uint8 views of the host copy."""
         if self.done is not None:
-            with profiling.span("decode.drain"):
+            with profiling.span("decode.drain", card=self.card):
                 self.done.synchronize()
         flat = self.host.view(torch.uint8).reshape(self.host.shape[0], -1)
         return [flat[b, self.base:self.base + n]
@@ -178,7 +180,11 @@ class _Spread:
     agreeing. The JAX package agrees its resolver's fallback for a whole
     window across processes (``pipeline.py:759``); here each shard decides
     alone, and a shard the resolver declines goes to the stream kernel:
-    the bytes are the same."""
+    the bytes are the same.
+
+    ``cards`` names each local device on its shards' spans: its CUDA
+    ordinal, or its position among the devices where it has none (the
+    CPU) or shares it with another (a card named twice)."""
 
     def __init__(self, device, n_items: int, window: int, default: int):
         self.devices = mesh_mod.block_devices(device)
@@ -191,18 +197,25 @@ class _Spread:
                 f"this one has {tuple(mine)}, the largest are "
                 f"{tuple(agreed[:3])}")
         self.n_shards = len(self.devices) * mesh_mod.process_count()
+        index = [d.index for d in self.devices]
+        self.cards = (index if None not in index
+                      and len(set(index)) == len(index)
+                      else list(range(len(index))))
         self.window = window if window > 0 else default * self.n_shards
 
     def shards(self, lo: int, hi: int):
         """Each non-empty shard of items ``[lo, hi)``, in order: (first,
-        end, rank, device), device None for another process's shard."""
+        end, rank, device, card), device and card None for another
+        process's shard."""
         n_dev = len(self.devices)
         for s, (a, b) in enumerate(mesh_mod.shard_bounds(hi - lo,
                                                          self.n_shards)):
             if a < b:
                 rank = s // n_dev
+                mine = rank == self.rank
                 yield (lo + a, lo + b, rank,
-                       self.devices[s % n_dev] if rank == self.rank else None)
+                       self.devices[s % n_dev] if mine else None,
+                       self.cards[s % n_dev] if mine else None)
 
 
 def _lookahead(windows):
@@ -526,7 +539,7 @@ def decompress(stream: bytes, device=None, impl: str = "auto",
     with profiling.call("decode.call", route=impl) as sp:
         hdr, table, sizes = _scan(stream)
         windows = _decoded_windows(stream, table, device, impl, window_blocks,
-                                   dictionary)
+                                   dictionary, sp)
         out = _to_host0(windows, sizes, hdr.total_size, progress)
         sp.add(bytes_in=len(stream), bytes_out=len(out), blocks=len(table))
     return out
@@ -540,32 +553,35 @@ def _scan(stream: bytes):
 
 
 def _decoded_windows(stream, table, device, impl: str, window_blocks: int,
-                     dictionary):
+                     dictionary, call):
     """Decode the container's windows through the route ``impl``, each of
     this process's shards on its device (the stream kernel for a shard the
     resolver declines). Yields each window's ``_Shard`` list; window k is
     yielded only after every local shard of window k + 1 has been
     launched. The dictionary, the devices and the processes' agreement are
-    checked here, at the call, before the caller writes anything."""
+    checked here, at the call, before the caller writes anything; the
+    call's span ``call`` counts its shards."""
     dictionary = _check_dictionary(dictionary)
     spread = _Spread(device, len(table), window_blocks,
                      XLA_WINDOW_BLOCKS if impl == "xla" else WINDOW_BLOCKS)
+    call.add(shards=spread.n_shards)
 
-    def launch(lo, hi, dev, pool):
+    def launch(lo, hi, dev, card, pool):
         win = table[lo:hi]
-        with profiling.span("decode.window", blocks=hi - lo) as sp:
+        with profiling.span("decode.window", blocks=hi - lo,
+                            card=card) as sp:
             r = _WINDOW_ROUTES[impl](stream, win, dev, pool, dictionary)
             if r is None:  # the resolver declined a block
                 sp.add(declined=1)
                 r = _stream_window(stream, win, dev, pool, dictionary)
-            return _Pending(r[0], _declared_sizes(stream, win), r[1])
+            return _Pending(r[0], _declared_sizes(stream, win), r[1], card)
 
     def windows():
         with ThreadPoolExecutor() as pool:  # the native core releases the GIL
             for lo in range(0, len(table), spread.window):
                 yield [_Shard(a, b, rank, None if dev is None else
-                              launch(a, b, dev, pool))
-                       for a, b, rank, dev in spread.shards(
+                              launch(a, b, dev, card, pool))
+                       for a, b, rank, dev, card in spread.shards(
                            lo, min(lo + spread.window, len(table)))]
 
     return _lookahead(windows())
@@ -595,7 +611,7 @@ def decompress_to_file(stream: bytes, out_path, device=None,
         hdr, table, sizes = _scan(stream)
         sp.add(bytes_in=len(stream), blocks=len(table))
         windows = _decoded_windows(stream, table, device, impl, window_blocks,
-                                   dictionary)
+                                   dictionary, sp)
         _check_sizes(sizes, hdr.total_size)
         several = mesh_mod.process_count() > 1
         if mesh_mod.process_index() == 0:
@@ -654,6 +670,7 @@ def decompress_to_words(stream: bytes, device=None, impl: str = "pallas",
         hdr, table, sizes = _scan(stream)
         sp.add(bytes_in=len(stream), blocks=len(table))
         spread = _Spread(device, len(table), window_blocks, WINDOW_BLOCKS)
+        sp.add(shards=spread.n_shards)
         window = window_blocks if window_blocks > 0 else WINDOW_BLOCKS
         B, rows = mesh_mod.padded_shards(len(table), len(spread.devices))
         shards = [mesh_mod.Shard(sl, dev, torch.zeros(
@@ -661,11 +678,12 @@ def decompress_to_words(stream: bytes, device=None, impl: str = "pallas",
             device=dev)) for sl, dev in zip(rows, spread.devices)]
         with ThreadPoolExecutor() as pool:
             for lo in range(0, B // spread.n_shards, window):
-                for sh in shards:
+                for sh, card in zip(shards, spread.cards):
                     first = sh.index.start + lo
                     win = table[first:min(first + window, sh.index.stop)]
                     if win:  # padding rows launch nothing
-                        with profiling.span("decode.window", blocks=len(win)):
+                        with profiling.span("decode.window", blocks=len(win),
+                                            card=card):
                             sh.data[lo:lo + len(win)] = _WINDOW_ROUTES[impl](
                                 stream, win, sh.device, pool)[0]
     return (mesh_mod.BlockShards((B, DK.OUT_ROWS, DK.LANES), tuple(shards)),
@@ -821,7 +839,8 @@ def compress(data: bytes, ext: bool = True, level: int = 1, device=None,
                     # drained
                     launched = [(a, b, _launch_shard(
                         blocks[a:b], dev, dictionary, ext, level, emit_impl))
-                                for a, b, _, dev in shards if dev is not None]
+                                for a, b, _, dev, _ in shards
+                                if dev is not None]
                     mine = {}
                     for a, b, shard in launched:
                         mine.update(zip(range(a, b), _shard_payloads(
@@ -881,7 +900,7 @@ def _shard_payloads(win: List[bytes], shard, dictionary, ext: bool,
 def _share_payloads(shards, mine: dict) -> dict:
     """Every payload of a window on every process: ``mine`` maps this
     process's blocks to their payloads, ``shards`` is the window's
-    ``(first, end, rank, device)`` list. Across processes, one all-gather
+    ``_Spread.shards`` list. Across processes, one all-gather
     of each rank's payload sizes, then one of its payloads joined and
     padded to the longest rank's; every rank then holds every block."""
     n = mesh_mod.process_count()
@@ -889,7 +908,7 @@ def _share_payloads(shards, mine: dict) -> dict:
         return mine
     with profiling.span("compress.share"):
         owned = [[] for _ in range(n)]
-        for a, b, rank, _ in shards:
+        for a, b, rank, _, _ in shards:
             owned[rank] += range(a, b)
         width = max(1, max(map(len, owned)))
         mine_blocks = owned[mesh_mod.process_index()]

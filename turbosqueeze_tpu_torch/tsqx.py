@@ -281,18 +281,19 @@ def decompress(data, device=None) -> bytes:
         with profiling.span("decode.scan"):
             view = TsqxView(data)
         spread = _Spread(device, view.n_groups, 0, BATCH_GROUPS)
+        sp.add(shards=spread.n_shards)
         nblk = view.nblk
 
-        def launch(a, b, dev):
+        def launch(a, b, dev, card):
             with profiling.span("decode.window", blocks=(b - a) * nblk,
-                                groups=b - a):
-                return _Pending(*_decode_groups(view, dev, a, b))
+                                groups=b - a, card=card):
+                return _Pending(*_decode_groups(view, dev, a, b), card=card)
 
         def batches():
             for lo in range(0, view.n_groups, spread.window):
                 yield [_Shard(a * nblk, b * nblk, rank,
-                              None if dev is None else launch(a, b, dev))
-                       for a, b, rank, dev in spread.shards(
+                              None if dev is None else launch(a, b, dev, card))
+                       for a, b, rank, dev, card in spread.shards(
                            lo, min(lo + spread.window, view.n_groups))]
 
         out = _to_host0(_lookahead(batches()), view.block_sizes,
