@@ -31,10 +31,12 @@ Phases:
      inside and past the output plane, ext on and off) word for word over
      the whole output plane;
   3. end to end: a 256 MiB input (64 full blocks) compressed at levels 0,
-     1 and 2, decoded through the public API, checked against the input
-     and the native host decoder, and timed; and the gang kernel on one
-     full level-1 block of each of the eight classes (its U and W gangs,
-     its time, ms per gang), against its plain version;
+     1 and 2, decoded through the public API (the stream kernel, the
+     default on the card), checked against the input and the native host
+     decoder; the gang route timed end to end and layer by layer; and the
+     gang kernel on one full level-1 block of each of the eight classes
+     (its U and W gangs, its time, ms per gang), against its plain
+     version;
   4. the stream route end to end on a 64 MiB container, and its kernel
      alone on the route's windows;
   5. the emit kernel against its plain version and the native core, both
@@ -638,16 +640,22 @@ def phase3(errs, counts, timing):
     streams = {}
     for level in (0, 1, 2):
         stream = streams[level] = native.compress(data, True, level=level)
-        before = counts["decode_gang"]
+        before = dict(counts)
         out = _main_path(counts, lambda: tsq.decompress(stream,
                                                         backend="cuda"))
         check(out == data, f"level {level}: port decode != input")
         check(out == native.decompress(stream),
               f"level {level}: port decode != native decode")
+        check(counts["decode_stream"] > before["decode_stream"]
+              and counts["decode_gang"] == before["decode_gang"],
+              f"level {level}: the default route is not the stream kernel")
+        before = counts["decode_gang"]
+        check(_main_path(counts, lambda: pipeline.decompress(
+            stream, impl="gang")) == data, f"level {level}: gang != input")
         check(counts["decode_gang"] > before,
               f"level {level}: the gang kernel never launched")
         e2e = [_host_ms(lambda: _main_path(
-            counts, lambda: tsq.decompress(stream, backend="cuda")), 1)
+            counts, lambda: pipeline.decompress(stream, impl="gang")), 1)
             for _ in range(3)]
         e2e_ms = statistics.median(e2e)
         native_ms = _host_ms(lambda: native.decompress(stream), 3)
@@ -2696,7 +2704,7 @@ def phase11(counts, data, streams):
     n_cards = torch.cuda.device_count()
     if n_cards > 1:
         for name, call, want in (
-                ("decompress gang", lambda: tsq.decompress(stream), data),
+                ("decompress", lambda: tsq.decompress(stream), data),
                 ("compress level 1", lambda: tsq.compress(data, level=1),
                  stream)):
             out, ms, cores = _cpu_wall(lambda: _main_path(counts, call))

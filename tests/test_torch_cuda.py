@@ -170,9 +170,23 @@ def test_pipeline_mixes_both_kernels(native, monkeypatch):
 
     monkeypatch.setattr(native, "bulk_prep", declines_short_blocks)
     PG.launches = PS.launches = 0
-    out = pipeline.decompress(stream, device="cuda", window_blocks=1)
+    out = pipeline.decompress(stream, device="cuda", impl="gang",
+                              window_blocks=1)
     assert (PG.launches, PS.launches) == (2, 1)
     assert out == data
+
+
+def test_auto_takes_the_stream_kernel_on_the_card(native, monkeypatch):
+    """The default route on a CUDA device parses each raw payload on the
+    card: one stream launch a window, no gang launch, no host resolve."""
+    data = synthetic_text(2 * (1 << 22) + 54_321, seed=19)
+    stream = native.compress(data, True, level=0)
+    resolved, real = [], native.bulk_prep
+    monkeypatch.setattr(native, "bulk_prep",
+                        lambda *a: resolved.append(1) or real(*a))
+    PG.launches = PS.launches = 0
+    assert pipeline.decompress(stream, window_blocks=1) == data
+    assert (PG.launches, PS.launches, resolved) == (0, 3, [])
 
 
 @pytest.mark.parametrize("matcher", ["cand", "table"])

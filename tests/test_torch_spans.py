@@ -75,11 +75,12 @@ def test_decompress_records_the_gang_route(stream):
     assert out == DATA
     call = _one_call(got, "decode.call")
     n = _by_name(got)
-    assert call.counts == {"route": "gang", "shards": 1,
+    # the call names the route asked for, the window the one that ran
+    assert call.counts == {"route": "auto", "shards": 1,
                            "bytes_in": len(stream), "bytes_out": len(DATA),
                            "blocks": 1}
     (window,) = n["decode.window"]
-    assert window.counts == {"blocks": 1, "card": 0}
+    assert window.counts == {"blocks": 1, "card": 0, "route": "gang"}
     assert n["decode.scan"][0].parent == call.id
     assert {s.parent for s in n["decode.assemble"]} == {call.id}
     assert sum(s.counts.get("bytes", 0) for s in n["decode.assemble"]) \
@@ -112,6 +113,7 @@ def test_each_route_records_its_host_layers(stream, impl, host):
     call = _one_call(got, "decode.call")
     assert call.counts["route"] == impl
     (window,) = _by_name(got)["decode.window"]
+    assert window.counts["route"] == impl
     under = sorted({s.name for s in got if s.parent == window.id})
     assert under == sorted(host)
 
@@ -122,7 +124,8 @@ def test_a_declined_window_counts_and_takes_the_stream_kernel(
     out, got = _traced(lambda: pipeline.decompress(stream, device="cpu"))
     assert out == DATA
     (window,) = _by_name(got)["decode.window"]
-    assert window.counts == {"blocks": 1, "card": 0, "declined": 1}
+    assert window.counts == {"blocks": 1, "card": 0, "route": "stream",
+                             "declined": 1}
     under = {s.name for s in got if s.parent == window.id}
     assert under == {"host.resolve", "host.pack", "copy.stage"}
 

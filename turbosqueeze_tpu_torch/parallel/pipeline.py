@@ -23,6 +23,10 @@ blocks for the route ``impl`` names:
   * ``"xla"``: the same tokens go through the scatter/gather decode of
     ``kernels/decode_xla.py``, in torch ops on the device.
 
+The default, ``"auto"``, is chosen for each shard by its device
+(``_route``): ``"stream"`` on a CUDA device, where the host resolve would
+idle the card, and ``"gang"`` on any other.
+
 A preset dictionary rides every route in the dict-extended output space
 ``[0, dict_len + size)``: the resolver stages it in the literal plane (up
 to a third 2 MiB gang window), the stream kernel at the head of the output,
@@ -498,6 +502,16 @@ def _check_impl(impl: str, routes) -> None:
         raise ValueError(f"unknown impl: {impl!r}")
 
 
+def _route(impl: str, device) -> str:
+    """The route a shard on ``device`` decodes through: ``"auto"`` is the
+    stream kernel on a CUDA device, which parses the raw payload on the
+    card with no host resolve, and ``"gang"`` on any other (the kernels'
+    plain versions); any other name is itself."""
+    if impl != "auto":
+        return impl
+    return "stream" if device.type == "cuda" else "gang"
+
+
 def _check_dictionary(dictionary):
     """A usable dictionary, or None for none (an empty one is none)."""
     if not dictionary:
@@ -525,17 +539,17 @@ def decompress(stream: bytes, device=None, impl: str = "auto",
     N-way merged record streams, with the same fallback; ``"stream"`` =
     the stream kernel for every window; ``"pallas"`` = host tokenize +
     token-chunk kernel; ``"xla"`` = host tokenize + the torch
-    scatter/gather decode; ``"auto"`` = gang. The host work runs in the
-    native core, which is built at first use. window_blocks: blocks per
-    window over all shards (default ``WINDOW_BLOCKS``, ``XLA_WINDOW_BLOCKS``
-    for xla, times the shard count, so that each shard keeps one device's
-    geometry). dictionary: the preset dictionary the container was
-    compressed with. progress: called with ``(blocks_done, n_blocks)`` once
-    per block, in block order, as the blocks are assembled (on rank 0).
+    scatter/gather decode; ``"auto"`` = ``"stream"`` on a CUDA device
+    and ``"gang"`` on any other, chosen for each shard by its device. The
+    host work runs in the native core, which is built at first use.
+    window_blocks: blocks per window over all shards (default
+    ``WINDOW_BLOCKS``, ``XLA_WINDOW_BLOCKS`` for xla, times the shard
+    count, so that each shard keeps one device's geometry). dictionary:
+    the preset dictionary the container was compressed with. progress:
+    called with ``(blocks_done, n_blocks)`` once per block, in block
+    order, as the blocks are assembled (on rank 0).
     """
-    if impl == "auto":
-        impl = "gang"
-    _check_impl(impl, _WINDOW_ROUTES)
+    _check_impl(impl, ("auto", *_WINDOW_ROUTES))
     with profiling.call("decode.call", route=impl) as sp:
         hdr, table, sizes = _scan(stream)
         windows = _decoded_windows(stream, table, device, impl, window_blocks,
@@ -555,12 +569,13 @@ def _scan(stream: bytes):
 def _decoded_windows(stream, table, device, impl: str, window_blocks: int,
                      dictionary, call):
     """Decode the container's windows through the route ``impl``, each of
-    this process's shards on its device (the stream kernel for a shard the
-    resolver declines). Yields each window's ``_Shard`` list; window k is
-    yielded only after every local shard of window k + 1 has been
-    launched. The dictionary, the devices and the processes' agreement are
-    checked here, at the call, before the caller writes anything; the
-    call's span ``call`` counts its shards."""
+    this process's shards on its device through the route ``_route`` gives
+    there (the stream kernel for a shard the resolver declines). Yields
+    each window's ``_Shard`` list; window k is yielded only after every
+    local shard of window k + 1 has been launched. The dictionary, the
+    devices and the processes' agreement are checked here, at the call,
+    before the caller writes anything; the call's span ``call`` counts its
+    shards, and each ``decode.window`` names the route that decoded it."""
     dictionary = _check_dictionary(dictionary)
     spread = _Spread(device, len(table), window_blocks,
                      XLA_WINDOW_BLOCKS if impl == "xla" else WINDOW_BLOCKS)
@@ -568,11 +583,13 @@ def _decoded_windows(stream, table, device, impl: str, window_blocks: int,
 
     def launch(lo, hi, dev, card, pool):
         win = table[lo:hi]
-        with profiling.span("decode.window", blocks=hi - lo,
-                            card=card) as sp:
-            r = _WINDOW_ROUTES[impl](stream, win, dev, pool, dictionary)
+        route = _route(impl, dev)
+        with profiling.span("decode.window", blocks=hi - lo, card=card,
+                            route=route) as sp:
+            r = _WINDOW_ROUTES[route](stream, win, dev, pool, dictionary)
             if r is None:  # the resolver declined a block
                 sp.add(declined=1)
+                sp.set(route="stream")
                 r = _stream_window(stream, win, dev, pool, dictionary)
             return _Pending(r[0], _declared_sizes(stream, win), r[1], card)
 
@@ -598,15 +615,14 @@ def decompress_to_file(stream: bytes, out_path, device=None,
     the container's size: each window's blocks are written as it drains,
     while the next window decodes, and no output is assembled in memory.
     ``impl`` is one of the JAX package's set (``"stream"``, ``"xla"``,
-    ``"bulk"``, ``"bulk2"``, ``"bulkn"``, ``"gang"``; ``"auto"`` =
-    ``"gang"``), run as in ``decompress``; ``device``, ``window_blocks``
-    and ``dictionary`` as there. With several processes each writes only
-    its own shards' blocks into the one file, between two barriers, and
-    every rank returns the container's size.
+    ``"bulk"``, ``"bulk2"``, ``"bulkn"``, ``"gang"``) or ``"auto"``
+    (``"stream"`` on a CUDA device, ``"gang"`` on any other), run as in
+    ``decompress``; ``device``, ``window_blocks`` and ``dictionary`` as
+    there. With several processes each writes only its own shards' blocks
+    into the one file, between two barriers, and every rank returns the
+    container's size.
     """
-    if impl == "auto":
-        impl = "gang"
-    _check_impl(impl, _FILE_IMPLS)
+    _check_impl(impl, ("auto", *_FILE_IMPLS))
     with profiling.call("decode.call", route=impl) as sp:
         hdr, table, sizes = _scan(stream)
         sp.add(bytes_in=len(stream), blocks=len(table))

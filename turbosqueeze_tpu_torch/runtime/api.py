@@ -77,7 +77,11 @@ def decompress(stream: bytes, backend: str = "auto",
     with, if any. ``device`` picks the devices as in ``compress``; with
     several processes (``parallel.mesh.init_distributed``) rank 0 returns
     the bytes and the others ``b""``. ``progress`` is called with
-    ``(blocks_done, n_blocks)`` per block (not for TSQX)."""
+    ``(blocks_done, n_blocks)`` per block (not for TSQX). On the card a
+    ``.tsq`` container takes ``pipeline.decompress``'s ``"auto"`` route:
+    the stream kernel parses each raw payload on a CUDA device, with no
+    host resolve; on ``device="cpu"`` the host resolves each block for the
+    gang kernel's plain version."""
     b = _resolve(backend)
     if tsqx.is_tsqx(stream):
         if dictionary is not None:

@@ -4,8 +4,8 @@
 A span records its name, its own id, the id of the span that caused it
 (0 for none), the id of the call it belongs to, the thread's native id,
 its start and end on ``time.perf_counter_ns``'s clock, and a few counts
-(bytes, blocks, groups, declined, overflowed; a call's route; pool work's
-thread CPU time, ``cpu_ns``).
+(bytes, blocks, groups, declined, overflowed; a call's route and a
+window's; pool work's thread CPU time, ``cpu_ns``).
 
 Spans are recorded only while a ``torch.profiler`` session collects on the
 thread that calls a public entry (``pipeline.decompress``,
@@ -55,7 +55,8 @@ _tls = threading.local()
 
 class _Open:
     """A span being recorded: the innermost open span of its thread from
-    ``__enter__`` to ``__exit__``; ``add`` adds to its counts."""
+    ``__enter__`` to ``__exit__``; ``add`` adds to its counts, ``set``
+    replaces them."""
 
     __slots__ = ("name", "id", "parent", "call", "counts", "start", "prev")
 
@@ -68,6 +69,9 @@ class _Open:
     def add(self, **counts) -> None:
         for k, v in counts.items():
             self.counts[k] = self.counts.get(k, 0) + v
+
+    def set(self, **counts) -> None:
+        self.counts.update(counts)
 
     def __enter__(self):
         self.prev = getattr(_tls, "span", None)
@@ -94,6 +98,9 @@ class _Off:
         return False
 
     def add(self, **counts) -> None:
+        pass
+
+    def set(self, **counts) -> None:
         pass
 
 
