@@ -6,20 +6,18 @@ codec, the corpus generators and the ctypes binding to the C++ host core
 This module also holds the native-core helpers of the port's tests.
 ``port_core()`` is the port's binding, built by its own locked build
 (``build/torch_core/``). ``jax_core()`` is the JAX package's binding,
-which loads ``build/libtsq_core.so``: where that library is missing, the
-helper compiles ``csrc`` there with the Makefile's flags (a build of its
-own, not a copy of the port's) under the same ``fcntl`` lock, publishes
-it atomically, and checks ``available()`` again inside the lock. The two
-bindings then load two builds of the same sources. No test of the port
+which loads ``build/libtsq_core.so``: where that library does not load,
+the helper builds ``csrc`` there with the Makefile's flags (a build of
+its own, not a copy of the port's) through the port's library builder
+(``utils/sharedlib.py``), which skips the build if another process has
+just made the library current. The two bindings then load two builds of
+the same sources. No test of the port
 runs ``make``. Importing this module runs both
 helpers once: pytest imports every test module in every worker before it
 runs a test, so the library exists before any fixture looks for it.
 """
 
 import ctypes
-import fcntl
-import subprocess
-import sys
 import threading
 import time
 from pathlib import Path
@@ -34,6 +32,7 @@ from turbosqueeze_tpu_torch import format as PF
 from turbosqueeze_tpu_torch import reference_codec as PC
 from turbosqueeze_tpu_torch.runtime import native as PN
 from turbosqueeze_tpu_torch.utils import corpus as PCORP
+from turbosqueeze_tpu_torch.utils import sharedlib
 
 REPO = Path(__file__).resolve().parents[1]
 MiB = 1 << 20
@@ -57,13 +56,11 @@ def jax_core():
     """The JAX package's native binding, for the tests' reference."""
     from turbosqueeze_tpu.runtime import native as ref
 
-    if _loads(ref):
-        return ref
-    PN.LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
-    with open(PN.LIB_PATH.parent / "build.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not _loads(ref):  # a build of its own, as make would give
-            PN.compile_core(REPO / "build" / "libtsq_core.so")
+    if not _loads(ref):  # a build of its own, as make would give
+        sharedlib.build([PN.CSRC / s for s in PN.SOURCES],
+                        [PN.CSRC / h for h in PN.HEADERS],
+                        REPO / "build" / "libtsq_core.so", lambda: [PN.CXX],
+                        PN.CXXFLAGS, PN.CXXFLAGS, what="native core")
     assert _loads(ref)
     return ref
 
@@ -361,42 +358,6 @@ def test_native_errors(cores):
         port.bulk_prep(b"\x10\x00\x00\x00", True)  # shorter than 5
     with pytest.raises(ValueError, match="dictionary"):
         port.compress_dict(_DATA, b"", True)
-
-
-_BUILD = """
-import sys
-from pathlib import Path
-from turbosqueeze_tpu_torch.runtime import native
-native.LIB_PATH = Path(sys.argv[1]) / "libtsq_core.so"
-native.CXXFLAGS = native.CXXFLAGS + tuple(sys.argv[2:])
-print(native.build())
-print(native.available())
-"""
-
-
-def test_build_locks_and_publishes_atomically(tmp_path):
-    """Four processes that find no core at once build it once, under the
-    lock, and each loads a whole library."""
-    procs = [subprocess.Popen([sys.executable, "-c", _BUILD, str(tmp_path)],
-                              cwd=REPO, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for _ in range(4)]
-    outs = [p.communicate(timeout=300) for p in procs]
-    assert [p.returncode for p in procs] == [0] * 4, outs
-    assert all(o.split() == [str(tmp_path / "libtsq_core.so"), "True"]
-               for o, _ in outs)
-    assert sorted(f.name for f in tmp_path.iterdir()) == [
-        "build.lock", "libtsq_core.so"]
-
-
-def test_failed_build_raises_with_the_compiler_output(tmp_path):
-    r = subprocess.run([sys.executable, "-c", _BUILD, str(tmp_path),
-                        "-DTSQ_NO_SUCH", "-include", "no_such_header.h"],
-                       cwd=REPO, capture_output=True, text=True, timeout=300)
-    assert r.returncode != 0
-    assert "native core build failed" in r.stderr
-    assert "no_such_header.h" in r.stderr
-    assert not (tmp_path / "libtsq_core.so").exists()
 
 
 def test_first_load_from_many_threads(monkeypatch):

@@ -187,19 +187,21 @@ def test_tsqx_and_the_file_and_words_entries_record_a_call(stream,
 @pytest.fixture
 def fake_card(monkeypatch):
     """The CPU build standing in for a CUDA one, which it cannot pin or
-    upload to: ``torch.empty(pin_memory=True)`` and ``pin_memory()`` give
-    host tensors that ``is_pinned`` reports as pinned, and a copy to a CUDA
-    device leaves a tensor where it is, so the kernels' plain versions
-    run. Returns the pinned tensors, kept alive so that no other tensor
-    reuses their memory."""
+    upload to: ``torch.empty(pin_memory=True)``, ``torch.zeros(pin_memory=
+    True)`` and ``pin_memory()`` give host tensors that ``is_pinned``
+    reports as pinned, and a copy to a CUDA device leaves a tensor where it
+    is, so the kernels' plain versions run. Returns the pinned tensors,
+    kept alive so that no other tensor reuses their memory."""
     pinned = []
-    empty, to = torch.empty, torch.Tensor.to
+    to = torch.Tensor.to
 
-    def pinned_empty(*args, pin_memory=False, **kw):
-        t = empty(*args, **kw)
-        if pin_memory:
-            pinned.append(t)
-        return t
+    def pinning(make):
+        def made(*args, pin_memory=False, **kw):
+            t = make(*args, **kw)
+            if pin_memory:
+                pinned.append(t)
+            return t
+        return made
 
     def pin(self):
         pinned.append(self.clone())
@@ -216,7 +218,8 @@ def fake_card(monkeypatch):
             return self
         return to(self, *args, **kw)
 
-    monkeypatch.setattr(torch, "empty", pinned_empty)
+    monkeypatch.setattr(torch, "empty", pinning(torch.empty))
+    monkeypatch.setattr(torch, "zeros", pinning(torch.zeros))
     monkeypatch.setattr(torch.Tensor, "pin_memory", pin)
     monkeypatch.setattr(torch.Tensor, "is_pinned", is_pinned)
     monkeypatch.setattr(torch.Tensor, "to", upload)
@@ -254,12 +257,15 @@ def test_copy_stage_restages_only_planes_not_pinned(fake_card):
 
 
 @pytest.mark.parametrize("route, restaged", [
-    ("gang", False), ("bulk2", True), ("stream", True)])
+    ("gang", False), ("bulk2", True), ("stream", True), ("pallas", False),
+    ("xla", True)])
 def test_only_the_gang_route_uploads_its_planes_as_packed(
         stream, fake_card, monkeypatch, route, restaged):
     """On a CUDA device (faked) the gang route packs its planes on the pool
     into pinned memory inside ``host.pack``, and ``copy.stage`` restages
-    none of them; the other routes restage every plane byte."""
+    none of them; the token route packs into pinned memory too and
+    restages nothing; the bulk, stream and xla routes restage every plane
+    byte."""
     from turbosqueeze_tpu_torch.kernels import decode_gang as PG
     from turbosqueeze_tpu_torch.kernels.decode_tokens import words_to_bytes
 
@@ -290,6 +296,26 @@ def test_only_the_gang_route_uploads_its_planes_as_packed(
             for tid, t0, t1 in fills)
     else:
         assert not fills
+
+
+@pytest.mark.parametrize("dictionary", [None, b"a preset dictionary " * 50])
+def test_a_compress_window_stages_its_rows_as_packed(fake_card, dictionary):
+    """On a CUDA device (faked) a compress window packs its rows into
+    pinned memory inside its one ``copy.stage`` span, which counts the
+    rows' bytes and restages none of them."""
+    from turbosqueeze_tpu_torch.kernels.encode_emit import IN_ROWS
+
+    win = [DATA[:70_000], DATA[70_000:]]
+    batch, got = _under_a_call(lambda: pipeline._upload_window(
+        win, dictionary, torch.device("cuda")))
+    (stage,) = _by_name(got)["copy.stage"]
+    assert stage.counts == {"restaged": 0,
+                            "bytes": len(win) * IN_ROWS * 512}
+    assert batch.is_pinned() and batch.shape == (len(win), IN_ROWS * 512)
+    d = dictionary or b""
+    for row, blk in zip(batch.numpy(), win):
+        assert row[:len(d) + len(blk)].tobytes() == d + blk
+        assert not row[len(d) + len(blk):].any()
 
 
 # -- the benchmark's reader -------------------------------------------------

@@ -3,22 +3,16 @@
 The kernels in ``csrc/`` export a plain C interface and include no
 PyTorch header, so ``nvcc`` builds them in seconds and ``ctypes`` loads
 the result. The library is built at first use, from the sources beside
-this module only, and rebuilt whenever a source is newer than it. The
-build holds an exclusive ``fcntl`` lock on ``build.lock`` beside the
-library, so processes that start at once build it once, and publishes it
-with ``os.replace``; ``library()`` checks, builds and loads under a
-``threading.Lock``, so threads that make the first kernel call at once
-build and load it once.
+this module only, by the port's one library builder
+(``utils/sharedlib.py``), and rebuilt whenever a source is newer than it.
 """
 
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import os
-import subprocess
-import threading
 from pathlib import Path
+
+from ..utils import sharedlib
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("decode_bulk.cu", "decode_gang.cu", "decode_stream.cu",
@@ -32,16 +26,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
-_load_lock = threading.Lock()
 
 
-def _nvcc() -> str:
+def _nvcc() -> list:
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
         raise RuntimeError("no CUDA toolkit found: set CUDA_HOME or put "
                            "nvcc on PATH")
-    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    return [str(Path(CUDA_HOME) / "bin" / "nvcc")]
 
 
 def build(csrc: Path = CSRC, lib_path: Path = LIB_PATH,
@@ -49,101 +42,48 @@ def build(csrc: Path = CSRC, lib_path: Path = LIB_PATH,
     """Compile the library from the sources in ``csrc`` (with the extra
     nvcc ``flags``) if it is missing or older than a source. Returns the
     compiler's report (registers, spills per kernel), or "" when the
-    library was already current. Holds an exclusive lock on
-    ``build.lock`` in the library's directory while it checks and
-    builds."""
-    lib_path.parent.mkdir(parents=True, exist_ok=True)
-    with open(lib_path.parent / "build.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
-        return _build_locked(csrc, lib_path, flags)
-
-
-def _build_locked(csrc: Path, lib_path: Path, flags: tuple) -> str:
-    srcs = [csrc / s for s in SOURCES]
-    # another checkout (an A/B run's) may not have every header
-    newest = max(f.stat().st_mtime for f in srcs + [csrc / h for h in HEADERS]
-                 if f.exists())
-    if lib_path.exists() and lib_path.stat().st_mtime >= newest:
-        return ""
-    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
-    objs = [lib_path.with_name(f"{s.stem}.{tag}.o") for s in srcs]
-    # one nvcc per source, all at once: the build time is the slowest
-    # source's, not the sum
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(o),
-                               str(s)],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for s, o in zip(srcs, objs)]
-    report = []
-    for s, p in zip(srcs, procs):
-        _, err = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {s.name} ({p.returncode}):"
-                               f"\n{err}")
-        report.append(err)
-    tmp = lib_path.with_name(f"{lib_path.name}.{tag}")
-    r = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
-                       capture_output=True, text=True)
-    for o in objs:
-        o.unlink()
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, lib_path)  # atomic: a reader never sees a partial file
-    return "".join(report)
+    library was already current."""
+    return sharedlib.build([csrc / s for s in SOURCES],
+                           [csrc / h for h in HEADERS], lib_path, _nvcc,
+                           (*NVCC_FLAGS, *flags), what="CUDA kernel")
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed; safe from any
     thread."""
-    global _lib
-    lib = _lib
-    if lib is not None:
-        return lib
-    with _load_lock:
-        if _lib is None:
-            build()
-            _lib = load(LIB_PATH)
-        return _lib
+    return sharedlib.load_once(globals(), build, lambda: load(LIB_PATH))
 
 
 def load(lib_path: Path) -> ctypes.CDLL:
     """A built kernel library, loaded and its entry points typed."""
-    lib = ctypes.CDLL(str(lib_path))
     P, I = ctypes.c_void_p, ctypes.c_int
-    # lit, gang, gmeta, out, n_blocks, nblk, lit_rows, rec_rows,
-    # out_rows, max_win, slot_recs, stream
-    lib.tsq_decode_gang.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
-    lib.tsq_decode_gang.restype = I
-    # lit, rec, meta, out, n_blocks, nblk, lit_rows, rec_rows, out_rows,
-    # max_win, meta_words, nwin_base, end_base, stream
-    lib.tsq_decode_bulk.argtypes = [P, P, P, P, *[I] * 9, P]
-    lib.tsq_decode_bulk.restype = I
-    # input, side, rec, osz, out, n_blocks, in_rows, side_rows,
-    # rec_rows, out_rows, max_win, stream
-    lib.tsq_encode_assemble.argtypes = [P, P, P, P, P, *[I] * 6, P]
-    lib.tsq_encode_assemble.restype = I
-    # input, cand, nv, meta, side, rec, osz, n_blocks, in_rows,
-    # cand_rows, side_rows, rec_rows, ext, stream
-    lib.tsq_encode_decide.argtypes = [P] * 7 + [I] * 6 + [P]
-    lib.tsq_encode_decide.restype = I
-    # input, cand, nv, meta, desc, stats, n_blocks, in_rows, cand_rows,
-    # desc_rows, ext, stream
-    lib.tsq_encode_flat_decide.argtypes = [P] * 6 + [I] * 5 + [P]
-    lib.tsq_encode_flat_decide.restype = I
-    # payload, meta, dict, out, n_blocks, pay_rows, out_rows,
-    # dict_rows, stream
-    lib.tsq_decode_stream.argtypes = [P, P, P, P, I, I, I, I, P]
-    lib.tsq_decode_stream.restype = I
-    # payload, tok_a, tok_b, out, n_blocks, n_chunks, pay_rows,
-    # out_rows, stream
-    lib.tsq_decode_tokens.argtypes = [P, P, P, P, I, I, I, I, P]
-    lib.tsq_decode_tokens.restype = I
-    # input, cand, table, meta, out, osz, n_blocks, in_rows, cand_rows,
-    # out_rows, ext, table_mode, stream
-    lib.tsq_encode_emit.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
-    lib.tsq_encode_emit.restype = I
-    lib.tsq_cuda_error_string.argtypes = [I]
-    lib.tsq_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return sharedlib.bind(ctypes.CDLL(str(lib_path)), {
+        # lit, gang, gmeta, out, n_blocks, nblk, lit_rows, rec_rows,
+        # out_rows, max_win, slot_recs, stream
+        "tsq_decode_gang": (I, [P, P, P, P, I, I, I, I, I, I, I, P]),
+        # lit, rec, meta, out, n_blocks, nblk, lit_rows, rec_rows,
+        # out_rows, max_win, meta_words, nwin_base, end_base, stream
+        "tsq_decode_bulk": (I, [P, P, P, P, *[I] * 9, P]),
+        # input, side, rec, osz, out, n_blocks, in_rows, side_rows,
+        # rec_rows, out_rows, max_win, stream
+        "tsq_encode_assemble": (I, [P, P, P, P, P, *[I] * 6, P]),
+        # input, cand, nv, meta, side, rec, osz, n_blocks, in_rows,
+        # cand_rows, side_rows, rec_rows, ext, stream
+        "tsq_encode_decide": (I, [P] * 7 + [I] * 6 + [P]),
+        # input, cand, nv, meta, desc, stats, n_blocks, in_rows,
+        # cand_rows, desc_rows, ext, stream
+        "tsq_encode_flat_decide": (I, [P] * 6 + [I] * 5 + [P]),
+        # payload, meta, dict, out, n_blocks, pay_rows, out_rows,
+        # dict_rows, stream
+        "tsq_decode_stream": (I, [P, P, P, P, I, I, I, I, P]),
+        # payload, tok_a, tok_b, out, n_blocks, n_chunks, pay_rows,
+        # out_rows, stream
+        "tsq_decode_tokens": (I, [P, P, P, P, I, I, I, I, P]),
+        # input, cand, table, meta, out, osz, n_blocks, in_rows,
+        # cand_rows, out_rows, ext, table_mode, stream
+        "tsq_encode_emit": (I, [P, P, P, P, P, P, I, I, I, I, I, I, P]),
+        "tsq_cuda_error_string": (ctypes.c_char_p, [I]),
+    })
 
 
 def check_launch(err: int, name: str) -> None:

@@ -63,7 +63,7 @@ import torch
 
 from ..utils import profiling
 from . import _build
-from .decode_tokens import LANES, OUT_ROWS, ROW_BYTES
+from .decode_tokens import LANES, OUT_ROWS, ROW_BYTES, planes_to_torch
 
 WIN_BYTES = 1 << 21
 WIN_ROWS = WIN_BYTES // ROW_BYTES           # 4096
@@ -457,7 +457,6 @@ def decode_bulk_block(payload: bytes, ext: bool, device=None,
     dict-extended output space (a third window is possible)."""
     from ..parallel import mesh
     from ..runtime import native
-    from .decode_tokens import planes_to_torch
 
     dev = mesh.block_devices(device)[0]
     r = native.bulk_prep(payload, ext, dictionary)

@@ -50,38 +50,43 @@ _LEN_MASK = (1 << 7) - 1
 launches = 0
 
 
-def planes_to_torch(*arrays, device) -> list:
-    """numpy planes or int32 host tensors -> contiguous int32 tensors on
-    ``device``.
-
-    uint32 planes are reinterpreted, never converted, so words with bit 31
-    set keep their bit pattern; the ``(rows, 128)`` layout is kept as is.
-    A CUDA copy goes through pinned memory and does not wait: it is
-    ordered before later work on the device's current stream. A tensor
-    already pinned is copied from where it is; any other plane is first
-    copied into pinned memory, and ``copy.stage`` counts those bytes as
-    ``restaged``.
-    """
+def to_device(arrays, device, span=None) -> list:
+    """Host arrays (numpy or CPU tensors) -> tensors on ``device``: the
+    port's one host-to-device copy. uint32 arrays go up as the int32 bit
+    patterns of their words. A CUDA copy goes up from pinned memory and
+    does not wait (it is ordered before later work on the device's
+    current stream): a pinned tensor from where it is, any other array
+    first copied into pinned memory (``restaged``). On the CPU a tensor
+    stays as it is. One ``copy.stage`` span counts ``bytes`` and
+    ``restaged``, or ``span`` where the caller has that span open."""
     device = torch.device(device)
+    if span is None:
+        with profiling.span("copy.stage", restaged=0) as sp:
+            return to_device(arrays, device, sp)
     out = []
-    with profiling.span("copy.stage", restaged=0) as sp:
-        for a in arrays:
-            if not isinstance(a, torch.Tensor):
-                a = np.ascontiguousarray(a)
-                a = torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
-                                     else a)
-            if a.dtype != torch.int32:
-                raise TypeError(f"planes are int32 or uint32 words, got "
-                                f"{a.dtype}")
-            t = a.contiguous()
-            sp.add(bytes=t.nbytes)
-            if device.type == "cuda":
-                if not t.is_pinned():
-                    t = t.pin_memory()
-                    sp.add(restaged=t.nbytes)
-                t = t.to(device, non_blocking=True)
-            out.append(t.to(device))
+    for a in arrays:
+        if not isinstance(a, torch.Tensor):
+            a = np.ascontiguousarray(a)
+            a = torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
+                                 else a)
+        t = a.contiguous()
+        span.add(bytes=t.nbytes)
+        if device.type == "cuda" and not t.is_pinned():
+            t = t.pin_memory()
+            span.add(restaged=t.nbytes)
+        out.append(t.to(device, non_blocking=True))
     return out
+
+
+def planes_to_torch(*arrays, device) -> list:
+    """int32 or uint32 numpy planes, or int32 host tensors -> contiguous
+    int32 tensors on ``device`` (``to_device``: uint32 words keep their bit
+    pattern); the ``(rows, 128)`` layout is kept as is."""
+    for a in arrays:
+        if a.dtype not in (torch.int32, np.int32, np.uint32):
+            raise TypeError(f"planes are int32 or uint32 words, got "
+                            f"{a.dtype}")
+    return to_device(arrays, device)
 
 
 def pack_payload_words(payload: bytes, pay_rows: int = PAY_ROWS) -> np.ndarray:

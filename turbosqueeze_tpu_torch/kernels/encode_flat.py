@@ -434,13 +434,13 @@ def layout_block(block: bytes, desc: np.ndarray, *, ext: bool = True,
         out_rows += (-out_rows) % 8
     rows = max((len(desc) + LANES - 1) // LANES + 8, 16)
     rows += (-rows) % 8
-    dw, iw, meta = planes_to_torch(
+    dw, n_desc, iw, meta = planes_to_torch(
         pack_desc_words(np.asarray(desc, np.int32), rows)[None],
-        pack_input_words(block)[None], pack_meta([len(block) - base], base),
+        np.array([len(desc)], np.int32), pack_input_words(block)[None],
+        pack_meta([len(block) - base], base),
         device=mesh.block_devices(device)[0])
-    words, osz = layout_batch(
-        dw, torch.tensor([len(desc)], dtype=torch.int32, device=dw.device),
-        iw, meta, ext=ext, out_rows=out_rows)
+    words, osz = layout_batch(dw, n_desc, iw, meta, ext=ext,
+                              out_rows=out_rows)
     size, _, ovf = osz[0, :3].tolist()
     assert ovf == 0, "layout overflow on test block"
     return payload_from_words(words[0], size)

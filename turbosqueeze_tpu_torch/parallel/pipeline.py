@@ -335,20 +335,6 @@ def _to_host0(windows, sizes: List[int], total_size: int,
     return out
 
 
-def _upload(arrays, device) -> list:
-    """numpy arrays -> tensors on ``device``; a CUDA copy goes through
-    pinned memory (``restaged``) and does not wait."""
-    cuda = device.type == "cuda"
-    out = []
-    with profiling.span("copy.stage", restaged=0) as sp:
-        for a in arrays:
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            sp.add(bytes=t.nbytes, restaged=t.nbytes if cuda else 0)
-            out.append(t.pin_memory().to(device, non_blocking=True)
-                       if cuda else t)
-    return out
-
-
 def _gang_window(stream, table_window, device, pool, dictionary=None):
     """Resolve one window of blocks on the host and launch the gang kernel
     on it. Returns (words, dict_len), or None when the resolver declines a
@@ -465,10 +451,8 @@ def _pallas_window(stream, table_window, device, pool, dictionary=None):
     on it. Returns (words, dict_len)."""
     parsed = _tokenize_window(stream, table_window, dictionary, pool)
     planes, out_rows = _token_planes(parsed, pool, device.type == "cuda")
-    with profiling.span("copy.stage", bytes=sum(p.nbytes for p in planes),
-                        restaged=0):
-        planes = [p.to(device, non_blocking=True) for p in planes]
-    return DK.decode_tokens_batch(*planes, out_rows=out_rows), parsed[0][6]
+    return (DK.decode_tokens_batch(*DK.to_device(planes, device),
+                                   out_rows=out_rows), parsed[0][6])
 
 
 def _xla_window(stream, table_window, device, pool, dictionary=None):
@@ -483,7 +467,7 @@ def _xla_window(stream, table_window, device, pool, dictionary=None):
         toks = DXL.pack_token_batch([p[1:5] for p in parsed], n_out)
         pay = DXL.pack_payload_batch([p[0] for p in parsed], DXL.PAY_N + pad)
         sp.add(bytes=sum(a.nbytes for a in (*toks, pay)))
-    return DXL.decode_batch_xla(*_upload((*toks, pay), device),
+    return DXL.decode_batch_xla(*DK.to_device((*toks, pay), device),
                                 n_out=n_out), base
 
 
@@ -713,17 +697,15 @@ def _upload_window(win: List[bytes], dictionary, device) -> torch.Tensor:
     row is concat(dictionary, block), zero-padded. Packed on the host in
     pinned memory and copied without waiting."""
     d = dictionary or b""
-    cuda = device.type == "cuda"
     with profiling.span("copy.stage", restaged=0) as sp:
         host = torch.zeros((len(win), EE.IN_ROWS * DK.ROW_BYTES),
-                           dtype=torch.uint8, pin_memory=cuda)
+                           dtype=torch.uint8, pin_memory=device.type == "cuda")
         rows = host.numpy()
         for b, blk in enumerate(win):
             rows[b, :len(d)] = np.frombuffer(d, dtype=np.uint8)
             rows[b, len(d):len(d) + len(blk)] = np.frombuffer(blk,
                                                               dtype=np.uint8)
-        sp.add(bytes=host.nbytes)
-        return host.to(device, non_blocking=True) if cuda else host
+        return DK.to_device([host], device, sp)[0]
 
 
 def _phase_a(batch: torch.Tensor, win: List[bytes], dlen: int) -> torch.Tensor:
@@ -738,7 +720,9 @@ def emit_planes(batch, cands, win, dlen: int):
     candidates), and meta (B, 8) ``[size, dlen]``."""
     B, dev = len(win), batch.device
     input_words = batch.view(torch.int32).reshape(B, EE.IN_ROWS, DK.LANES)
-    meta = torch.from_numpy(EE.pack_meta([len(b) for b in win], dlen)).to(dev)
+    # 32 bytes a block, not the window's staging: no span counts them
+    (meta,) = DK.to_device([EE.pack_meta([len(b) for b in win], dlen)], dev,
+                           profiling.OFF)
     if cands is None:
         return input_words, None, meta
     cand_words = torch.full((B, EE.CAND_ROWS * DK.LANES), -1,

@@ -3,13 +3,9 @@
 The host core is the one source the port shares with the JAX package: the
 same ``csrc/*.cpp``, built by each package into its own directory. This
 module builds its copy at first use into ``build/torch_core/`` (listed in
-``.gitignore``) with the flags of ``csrc/Makefile``, and rebuilds it when a
-source is newer than the library. The build holds an exclusive ``fcntl``
-lock on ``build/torch_core/build.lock``, so processes that start at once
-build it once; the library is linked under a temporary name and published
-with ``os.replace``, so a reader never loads a partial file. The load runs
-under a ``threading.Lock``, so a first call from a pool thread is safe. A
-failed build raises with the compiler's output.
+``.gitignore``) with the flags of ``csrc/Makefile`` through the port's one
+library builder (``utils/sharedlib.py``), and rebuilds it when a source
+is newer than the library.
 
 It binds only what the port calls: the host codec (``compress``,
 ``decompress``, their dictionary forms, with ``progress=``, and the
@@ -25,15 +21,13 @@ bulk resolver with its mergers (``bulk_prep``, ``bulk_merge2``,
 from __future__ import annotations
 
 import ctypes
-import fcntl
 import os
-import subprocess
-import threading
 from pathlib import Path
 
 import numpy as np
 
 from ..format import FormatError
+from ..utils import sharedlib
 
 REPO = Path(__file__).resolve().parents[2]
 CSRC = REPO / "csrc"
@@ -51,7 +45,6 @@ _BULK_OVERFLOW = -101
 _BULK_BAD_ARG = -102
 
 _lib = None
-_load_lock = threading.Lock()
 
 PROGRESS_CFUNC = ctypes.CFUNCTYPE(None, ctypes.c_void_p, ctypes.c_uint64,
                                   ctypes.c_uint64)
@@ -60,52 +53,13 @@ _NULL_PROGRESS = PROGRESS_CFUNC()
 
 # --- build and load ----------------------------------------------------------
 
-def _current() -> bool:
-    if not LIB_PATH.exists():
-        return False
-    newest = max((CSRC / s).stat().st_mtime for s in SOURCES + HEADERS)
-    return LIB_PATH.stat().st_mtime >= newest
-
-
-def compile_core(dst: Path) -> None:
-    """Compile ``csrc`` with the Makefile's flags and publish the library
-    at ``dst`` by an atomic rename. The caller holds the build lock.
-    Raises RuntimeError with the compiler's output when a step fails."""
-    tag = f"{os.getpid()}.tmp"
-    objs = [dst.with_name(f"{Path(s).stem}.{tag}.o") for s in SOURCES]
-    try:
-        # one compiler per source, all at once
-        procs = [subprocess.Popen(
-            [CXX, *CXXFLAGS, "-c", str(CSRC / s), "-o", str(o)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for s, o in zip(SOURCES, objs)]
-        outs = [p.communicate()[0] for p in procs]
-        errs = [f"{s} ({p.returncode}):\n{out}"
-                for s, p, out in zip(SOURCES, procs, outs) if p.returncode]
-        if errs:
-            raise RuntimeError("native core build failed:\n" + "\n".join(errs))
-        tmp = dst.with_name(f"{dst.name}.{tag}")
-        r = subprocess.run([CXX, *CXXFLAGS, "-shared", "-o", str(tmp),
-                            *map(str, objs)], capture_output=True, text=True)
-        if r.returncode:
-            raise RuntimeError(f"native core link failed ({r.returncode}):\n"
-                               f"{r.stdout}{r.stderr}")
-        os.replace(tmp, dst)  # atomic: never a partial library
-    finally:
-        for o in objs:
-            o.unlink(missing_ok=True)
-
-
 def build(force: bool = False) -> Path:
     """Build the core if it is missing or older than a source (always,
-    with ``force``), under an exclusive file lock. Returns the library's
-    path; raises RuntimeError with the compiler's output when a step
-    fails."""
-    LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
-    with open(LIB_PATH.parent / "build.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
-        if force or not _current():
-            compile_core(LIB_PATH)
+    with ``force``). Returns the library's path; raises RuntimeError with
+    the compiler's output when a step fails."""
+    sharedlib.build([CSRC / s for s in SOURCES], [CSRC / h for h in HEADERS],
+                    LIB_PATH, lambda: [CXX], CXXFLAGS, CXXFLAGS,
+                    what="native core", force=force)
     return LIB_PATH
 
 
@@ -139,22 +93,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "tsq_bulk_mergen": (I64, [P, P, U32, P, U64, P]),
         "tsq_bulk_gang": (I64, [P, P, U32, U32, P, U64, P]),
     }
-    for name, (res, args) in sigs.items():
-        fn = getattr(lib, name)
-        fn.restype, fn.argtypes = res, args
-    return lib
+    return sharedlib.bind(lib, sigs)
 
 
 def _load() -> ctypes.CDLL:
     """The bound core, built first if needed; safe from any thread."""
-    global _lib
-    lib = _lib
-    if lib is not None:
-        return lib
-    with _load_lock:
-        if _lib is None:
-            _lib = _bind(ctypes.CDLL(str(build())))
-        return _lib
+    return sharedlib.load_once(globals(), build,
+                               lambda: _bind(ctypes.CDLL(str(LIB_PATH))))
 
 
 def available() -> bool:

@@ -50,7 +50,7 @@ import torch
 from .format import BLOCK_SZ, FormatError, scan_block_table
 from .kernels import decode_gang as DGK
 from .kernels.decode_bulk import EMPTY_PREP, rows_for_bytes
-from .kernels.decode_tokens import OUT_ROWS
+from .kernels.decode_tokens import OUT_ROWS, to_device
 from .parallel import mesh as mesh_mod
 from .parallel.pipeline import (GANG_SRECS, _lookahead, _Pending, _Shard,
                                 _Spread, _to_host0)
@@ -222,10 +222,7 @@ def _host_planes(view: TsqxView, lo: int, hi: int, pin: bool):
 def _decode_groups(view: TsqxView, dev: torch.device, lo: int, hi: int):
     """Groups [lo, hi) through the gang kernel on ``dev``: (words,
     sizes)."""
-    planes = _host_planes(view, lo, hi, dev.type == "cuda")
-    with profiling.span("copy.stage", bytes=sum(t.nbytes for t in planes),
-                        restaged=0):
-        planes = [t.to(dev, non_blocking=True) for t in planes]
+    planes = to_device(_host_planes(view, lo, hi, dev.type == "cuda"), dev)
     words = DGK.decode_gang_batch(*planes, nblk=view.nblk,
                                   slot_recs=view.slot_recs)
     return words, view.block_sizes[lo * view.nblk:hi * view.nblk]
