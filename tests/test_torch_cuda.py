@@ -189,6 +189,38 @@ def test_auto_takes_the_stream_kernel_on_the_card(native, monkeypatch):
     assert (PG.launches, PS.launches, resolved) == (0, 3, [])
 
 
+@pytest.mark.parametrize("with_dict", [False, True])
+def test_stream_route_uploads_packed_planes(native, with_dict):
+    """The stream route on the card decodes the benchmark's text stand-in
+    (three full level-0 blocks and a short one) and a dictionary container
+    as the native core does, each window's planes packed into pinned
+    memory at the rows of its longest payload: ``copy.stage`` restages
+    nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpubench.gen import text_standin
+    from turbosqueeze_tpu_torch.utils import profiling
+
+    data = text_standin.generate(2026, 3 * (1 << 22) + 300_001)
+    d = synthetic_text(33_000, seed=113) if with_dict else None
+    stream = (native.compress_dict(data, d, True) if d
+              else native.compress(data, True, level=0))
+    seen = {s.id for s in profiling.spans()}
+    PS.launches = 0
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = pipeline.decompress(stream, device="cuda", impl="stream",
+                                  window_blocks=2, dictionary=d)
+    assert got == (native.decompress_dict(stream, d) if d
+                   else native.decompress(stream)) == data
+    spans = [s for s in profiling.spans() if s.id not in seen]
+    packs = [s for s in spans if s.name == "host.pack"]
+    stages = [s for s in spans if s.name == "copy.stage"]
+    assert PS.launches == len(packs) == len(stages) == 2
+    assert all(s.counts["restaged"] == 0 < s.counts["bytes"]
+               for s in stages)
+    assert all(0 < s.counts["pay_rows"] < PT.PAY_ROWS for s in packs)
+
+
 @pytest.mark.parametrize("matcher", ["cand", "table"])
 @pytest.mark.parametrize("ext", [True, False])
 def test_emit_kernel_matches_plain(native, matcher, ext):

@@ -257,45 +257,49 @@ def test_copy_stage_restages_only_planes_not_pinned(fake_card):
 
 
 @pytest.mark.parametrize("route, restaged", [
-    ("gang", False), ("bulk2", True), ("stream", True), ("pallas", False),
+    ("gang", False), ("bulk2", True), ("stream", False), ("pallas", False),
     ("xla", True)])
-def test_only_the_gang_route_uploads_its_planes_as_packed(
+def test_the_gang_and_stream_routes_upload_their_planes_as_packed(
         stream, fake_card, monkeypatch, route, restaged):
-    """On a CUDA device (faked) the gang route packs its planes on the pool
-    into pinned memory inside ``host.pack``, and ``copy.stage`` restages
-    none of them; the token route packs into pinned memory too and
-    restages nothing; the bulk, stream and xla routes restage every plane
-    byte."""
-    from turbosqueeze_tpu_torch.kernels import decode_gang as PG
-    from turbosqueeze_tpu_torch.kernels.decode_tokens import words_to_bytes
+    """On a CUDA device (faked) the gang and stream routes pack their
+    planes on the pool into pinned memory inside ``host.pack``, and
+    ``copy.stage`` restages none of them; the stream route's ``host.pack``
+    counts the rows its payload plane was cut to. The token route packs
+    into pinned memory too and restages nothing; the bulk and xla routes
+    restage every plane byte."""
+    from turbosqueeze_tpu_torch.kernels import decode_stream as PS
+    from turbosqueeze_tpu_torch.kernels import decode_tokens as PT
 
     fills = []
-    fill = PG._fill
+    fill = PT.fill_row
 
     def timed_fill(row, data):
         t0 = time.perf_counter_ns()
         fill(row, data)
         fills.append((threading.get_native_id(), t0, time.perf_counter_ns()))
 
-    monkeypatch.setattr(PG, "_fill", timed_fill)
+    monkeypatch.setattr(PT, "fill_row", timed_fill)
     _, table = scan_block_table(stream)
     with ThreadPoolExecutor(4) as pool:
         (words, base), got = _under_a_call(
             lambda: pipeline._WINDOW_ROUTES[route](
                 stream, table, torch.device("cuda"), pool))
-    assert words_to_bytes(words[0], base + len(DATA))[base:] == DATA
+    assert PT.words_to_bytes(words[0], base + len(DATA))[base:] == DATA
     n = _by_name(got)
     (pack,), (stage,) = n["host.pack"], n["copy.stage"]
     assert stage.counts["bytes"] == pack.counts["bytes"] > 0
     assert stage.counts["restaged"] == (stage.counts["bytes"] if restaged
                                         else 0)
-    if route == "gang":
-        # a literal row and a record row a block, on the pool's threads
-        assert len(fills) == 2 and all(
-            tid != pack.tid and pack.start_ns <= t0 <= t1 <= pack.end_ns
-            for tid, t0, t1 in fills)
+    # gang: a literal row and a record row a block; stream: a payload row
+    n_fills = {"gang": 2, "stream": len(table)}.get(route, 0)
+    assert len(fills) == n_fills and all(
+        tid != pack.tid and pack.start_ns <= t0 <= t1 <= pack.end_ns
+        for tid, t0, t1 in fills)
+    if route == "stream":
+        assert pack.counts["pay_rows"] == PS.payload_rows(
+            max(psz for _, psz, _ in table)) < PT.PAY_ROWS
     else:
-        assert not fills
+        assert "pay_rows" not in pack.counts
 
 
 @pytest.mark.parametrize("dictionary", [None, b"a preset dictionary " * 50])

@@ -39,7 +39,7 @@ import torch
 
 from ..parallel.mesh import pad_batch
 from ..utils import profiling
-from . import _build
+from . import _build, decode_tokens
 from .decode_bulk import (EMPTY_PREP, MAX_WIN, TAIL_BYTES, WIN_BYTES,
                           WIN_ROWS, pack_rec_words,
                           resolve_blocks, rows_for_bytes)
@@ -235,13 +235,6 @@ def pack_gang_words(rec: np.ndarray, rec_rows: int) -> np.ndarray:
     return pack_rec_words(rec, rec_rows)
 
 
-def _fill(row: np.ndarray, data: np.ndarray) -> None:
-    """``data`` at the start of ``row`` and zeros after it: each byte of the
-    row written once, whatever the row held before."""
-    row[:len(data)] = data
-    row[len(data):] = 0
-
-
 def prep_gang(payloads_ext, nblk: int, slot_recs: int = 8, map_fn=map,
               dictionary: bytes = None, pin: bool = False):
     """bulk_prep + bulk_gang a list of (payload, ext); returns packed
@@ -287,9 +280,9 @@ def prep_gang(payloads_ext, nblk: int, slot_recs: int = 8, map_fn=map,
 
         def pack(g):
             for b in range(nblk * g, nblk * (g + 1)):
-                _fill(lit[b], preps[b][0])
+                decode_tokens.fill_row(lit[b], preps[b][0])
             rec, meta = merged[g]
-            _fill(gang[g], rec)
+            decode_tokens.fill_row(gang[g], rec)
             gmeta[g] = meta.view(np.int32)
 
         list(map_fn(pack, range(G)))

@@ -18,9 +18,25 @@ import numpy as np
 import torch
 
 from . import _build
-from .decode_tokens import LANES, OUT_ROWS, ROW_BYTES, reconstruct_pair
+from .decode_tokens import (LANES, OUT_ROWS, PAY_ROWS, ROW_BYTES,
+                            reconstruct_pair)
 
 _WIN_ROWS = 8   # the reference kernel's parse window; pay_rows is a multiple
+# zero rows after a batch's longest payload: a match reads at most 65535
+# bytes before its anchor and a literal a few hundred past the payload's
+# end, so behind 64 KiB of zeros every read of a narrowed plane, corrupt
+# payloads included, finds what it finds in a full PAY_ROWS plane
+_GUARD_ROWS = (1 << 16) // ROW_BYTES
+
+
+def payload_rows(max_payload: int) -> int:
+    """The rows of a payload plane whose longest payload is ``max_payload``
+    bytes: the payload, a 64 KiB zero guard and 16 rows of slack, rounded
+    up to 64 rows, and at most ``PAY_ROWS`` (a payload near the format's
+    largest gets the full plane)."""
+    rows = -(-max_payload // ROW_BYTES) + _GUARD_ROWS + 16
+    return min(PAY_ROWS, -(-rows // 64) * 64)
+
 
 # kernel launches since the count was last reset (a CPU call is not one)
 launches = 0

@@ -95,6 +95,14 @@ def pack_payload_words(payload: bytes, pay_rows: int = PAY_ROWS) -> np.ndarray:
     return buf.view("<i4").reshape(pay_rows, LANES)
 
 
+def fill_row(row: np.ndarray, data: np.ndarray) -> None:
+    """``data`` at the start of ``row`` and zeros after it: each byte of the
+    row written once, whatever the row held before (a pinned block the
+    host allocator recycles holds an earlier window's bytes)."""
+    row[:len(data)] = data
+    row[len(data):] = 0
+
+
 def words_to_bytes(words, size: int) -> bytes:
     if isinstance(words, torch.Tensor):
         words = words.cpu().numpy()

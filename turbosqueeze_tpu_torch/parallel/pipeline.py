@@ -390,21 +390,39 @@ def _bulk_window(stream, table_window, device, pool, dictionary=None, *,
 
 def _stream_window(stream, table_window, device, pool, dictionary=None):
     """Launch the raw-payload stream kernel on one window of blocks.
-    Returns (words, dict_len)."""
+    Returns (words, dict_len).
+
+    The payload plane has the rows ``DST.payload_rows`` gives the window's
+    longest payload. It is packed one block per task of the pool (numpy's
+    copies release the GIL) straight from ``stream``, each byte written
+    once, in pinned memory on a CUDA device, as are the meta and
+    dictionary planes: ``copy.stage`` restages none of them."""
     dlen = len(dictionary) if dictionary else 0
     sizes = _declared_sizes(stream, table_window)
+    pin = device.type == "cuda"
+    src = np.frombuffer(stream, np.uint8)
     with profiling.span("host.pack") as sp:
-        pw = np.zeros((len(table_window), DK.PAY_ROWS, DK.LANES), np.int32)
-        for b, (off, psz, _) in enumerate(table_window):
-            pw[b] = DK.pack_payload_words(stream[off:off + psz])
-        planes = [pw, DST.pack_meta([ext for _, _, ext in table_window],
-                                    sizes, dict_len=dlen)]
+        pay_rows = DST.payload_rows(max(psz for _, psz, _ in table_window))
+        small = [DST.pack_meta([ext for _, _, ext in table_window], sizes,
+                               dict_len=dlen)]
         if dlen:
-            planes.append(DST.pack_dict_words(dictionary))
-        sp.add(bytes=sum(p.nbytes for p in planes))
+            small.append(DST.pack_dict_words(dictionary))
+        planes = [torch.empty(shape, dtype=torch.int32, pin_memory=pin)
+                  for shape in ((len(table_window), pay_rows, DK.LANES),
+                                *(a.shape for a in small))]
+        pay = planes[0].numpy().view(np.uint8).reshape(len(table_window), -1)
+
+        def pack(b):
+            off, psz, _ = table_window[b]
+            DK.fill_row(pay[b], src[off:off + psz])
+
+        list(pool.map(pack, range(len(table_window))))
+        for t, a in zip(planes[1:], small):
+            t.numpy()[...] = a
+        sp.add(bytes=sum(p.nbytes for p in planes), pay_rows=pay_rows)
     # dict-extended writes reach dict_len + size: widen the output
     out_rows = DK.OUT_ROWS + (_DICT_PAD // DK.ROW_BYTES if dlen else 0)
-    words = DST.decode_stream_batch(*planes_to_torch(*planes, device=device),
+    words = DST.decode_stream_batch(*DK.to_device(planes, device),
                                     out_rows=out_rows)
     return words, dlen
 
